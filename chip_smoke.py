@@ -6,28 +6,36 @@
 Phases (any failure exits non-zero, nothing is caught and passed over):
 
 1. machine: the card's name and power limit, and the kernel build time;
-2. kernels: every CUDA kernel of the main path against its plain PyTorch
-   version on the card, at main-path shapes (480x640 frames, M=96,
-   36-frame rings, k_cap=4096) for the merge (6144 live edges), the
-   JAX engine's lagged merge (14336) and the retain (45312) edge counts,
-   with max error, tolerance, times and bound;
+2. kernels: every CUDA kernel against its plain PyTorch version on the
+   card, at main-path shapes (480x640 frames, M=96, 36-frame rings,
+   k_cap=4096) for the merge (6144 live edges), the JAX engine's lagged
+   merge (14336) and the retain (45312) edge counts, with max error,
+   tolerance, times and bound: K2 corr_enc, K1 corr_fused (bf16, raw, v10
+   and v12 layouts), K5 corr_single (level-1 ring, fp32 out, raw and
+   reference order), K3/K4 the segment sums;
 3. agreement: the fp32 engine with the kernels on the card against the
    same engine with the plain versions on the CPU, on 16 small frames
    (same seeded weights, scripted centroids, fixed depth), in the
-   never-merge and always-merge regimes;
+   never-merge and always-merge regimes, at DPVO_CORR_VERSION 13 (K2), 12
+   and 9 (K1 in the v12 and raw layouts);
 4. engine: the main path at full width — 480x640, M=96, the default
    config with MIXED_PRECISION (bf16), ASYNC_KEYFRAME=False, seeded random
    weights, motion_probe forced — in the merge regime (KEYFRAME_THRESH=1e9)
-   for 40 frames, then the retain regime (KEYFRAME_THRESH=0), with
-   per-frame times, live edges and each kernel's launch count (all must
-   be > 0) and finite poses;
-5. the kernels line (one JSON object; ``launches`` from the merge drive),
-   the card line, then the last line ``{"ok": true, "device": {...}}``.
+   for 40 frames, then the retain regime (KEYFRAME_THRESH=0), then the
+   retain regime at DPVO_CORR_VERSION 12 (the raw-feature path), with
+   per-frame times, live edges, each kernel's launch count (every kernel
+   of the drive's path > 0, the other correlation kernel 0) and finite
+   poses;
+5. the kernels line (one JSON object; ``launches`` from the merge drive,
+   for corr_fused from the version-12 drive, for corr_single, which no
+   engine path runs, from phase 2), the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,11 +47,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor bf16 / fp32 FMA
 
 TOL_K2 = 1e-2     # max|kernel - plain| / max|plain|: one bf16 step
+TOL_F32 = 1e-4    # max|kernel - plain| of fp32 correlation: summation order
 TOL_SEG = (2e-5, 1e-5)                       # rtol, atol for fp32 sums
 
 KERNELS = {
     "corr_enc": dict(source="dpvo_tpu_torch/csrc/corr_enc.cu",
                      replaces="dpvo_tpu/ops/corr_pallas.py:898"),
+    "corr_fused": dict(source="dpvo_tpu_torch/csrc/corr_raw.cu",
+                       replaces="dpvo_tpu/ops/corr_pallas.py:719"),
+    "corr_single": dict(source="dpvo_tpu_torch/csrc/corr_raw.cu",
+                        replaces="dpvo_tpu/ops/corr_pallas.py:621"),
     "segment_softmax_sums": dict(
         source="dpvo_tpu_torch/csrc/segment_sums.cu",
         replaces="dpvo_tpu/ops/agg_pallas.py:89"),
@@ -124,17 +137,16 @@ def corr_inputs(E, n_frames, n_patches, dev, gen):
     return g_all, kk, w_raw, f1, f2, coords, ff
 
 
-def corr_work(g_all, kk, w_raw, f1, f2, coords, ff):
-    """Bytes this call must move (each touched input value once, each
-    output once) and its multiply-adds x2, from this call's data."""
+def window_bytes(fmaps, coords, ff):
+    """Bytes of the ring pixels that the 8x8 windows of these coordinates
+    touch (level l at coords / 4**l), each counted once."""
     import torch
     from dpvo_tpu_torch.ops.corr_cuda import PAD, R, D, P2
     E = coords.shape[0]
-    es = f1.element_size()
     nbytes = 0
-    for fm, scale in ((f1, 1.0), (f2, 0.25)):
+    for level, fm in enumerate(fmaps):
         Fn, Hp, Wp, C = fm.shape
-        c = coords * scale
+        c = coords * 0.25 ** level
         bx = torch.nan_to_num(torch.floor(c[:, 0]).reshape(E, P2)
                               + (PAD - R), nan=0.0).clamp(0, Wp - D).long()
         by = torch.nan_to_num(torch.floor(c[:, 1]).reshape(E, P2)
@@ -145,13 +157,35 @@ def corr_work(g_all, kk, w_raw, f1, f2, coords, ff):
             lin = ((ff.long()[:, None, None] * Hp + by[..., None] + dy) * Wp
                    + bx[..., None] + off)
             mask[lin.reshape(-1)] = True
-        nbytes += int(mask.sum()) * C * es
+        nbytes += int(mask.sum()) * C * fm.element_size()
+    return nbytes
+
+
+def corr_work(g_all, kk, w_raw, f1, f2, coords, ff):
+    """Bytes this call must move (each touched input value once, each
+    output once) and its multiply-adds x2, from this call's data."""
+    import torch
+    from dpvo_tpu_torch.ops.corr_cuda import D, P2
+    E = coords.shape[0]
+    es = f1.element_size()
+    nbytes = window_bytes((f1, f2), coords, ff)
     nbytes += int(torch.unique(kk).numel()) * P2 * g_all.shape[-1] * es
     nbytes += w_raw.numel() * es + coords.numel() * 4 + 2 * E * 4
     nbytes += E * w_raw.shape[1] * es
     nops = E * (2 * P2 * D * D * g_all.shape[-1] * 2
                 + w_raw.shape[0] * w_raw.shape[1] * 2)
     return nbytes, nops
+
+
+def raw_work(g_pre, fmaps, coords, ff, out):
+    """corr_work for K1/K5: touched window pixels, the g_pre rows, coords,
+    ring slots and the output; E*L*9*64*128*2 operations."""
+    from dpvo_tpu_torch.ops.corr_cuda import D, P2
+    E = coords.shape[0]
+    nbytes = (window_bytes(fmaps, coords, ff)
+              + g_pre.numel() * g_pre.element_size() + coords.numel() * 4
+              + E * 4 + out.numel() * out.element_size())
+    return nbytes, E * len(fmaps) * P2 * D * D * g_pre.shape[-1] * 2
 
 
 def segment_inputs(E, D, n_groups, dev, gen):
@@ -208,7 +242,50 @@ def phase_kernels(dev):
         results.setdefault("corr_enc", {})[E] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
+
+        # K1: two-level correlation (bf16) in the raw, v10 and v12 layouts
+        # (v10 is the layout of the dev variant D1), and
+        # K5: the level-1 correlation (fp32 out), raw and reference order,
+        # on the same edges' gathered patch rows
+        g_all, kk, _, f1, f2, coords, ff = args
+        g_pre = g_all[kk.long()]
         del args, got, want
+        for name, layout in (("corr_fused", "raw"), ("corr_fused", "v10"),
+                             ("corr_fused", "v12"), ("corr_single", "raw"),
+                             ("corr_single", "ref")):
+            if name == "corr_fused":
+                fmaps = (f1, f2)
+                kargs = (g_pre, f1, f2, coords, ff, layout, torch.bfloat16)
+                kernel, plain = corr_cuda.corr_fused, corr_cuda.corr_fused_plain
+            else:
+                fmaps = (f1,)
+                kargs = (g_pre, f1, coords, ff, layout == "raw")
+                kernel = corr_cuda.corr_single
+                plain = corr_cuda.corr_single_plain
+            got = kernel(*kargs)
+            want = plain(*kargs)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            tol = TOL_K2 * scale if name == "corr_fused" else TOL_F32
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            ms = time_ms(lambda: kernel(*kargs), reps=10)
+            plain_ms = time_ms(lambda: plain(*kargs), reps=3, warm=1)
+            nbytes, nops = raw_work(g_pre, fmaps, coords, ff, got)
+            b_ms, b_by = bound(nbytes, nops, "bf16")
+            log(f"[kernels] {name} {layout} E={E}: max_abs_err={err:.3e} "
+                f"max|plain|={scale:.3e} tol={tol:.3e} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP) "
+                f"library_ms=none (no single call) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name} ({layout}) disagrees with its plain "
+                                 f"version at E={E}")
+            results.setdefault(name, {})[E, layout] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+            del got, want
+        del g_all, kk, f1, f2, coords, ff, g_pre
 
         # K3: SoftAgg softmax sums (f32) over the agg_kk patch groups
         g_cap = k_cap + 8
@@ -283,6 +360,18 @@ SMALL_INTR = np.array([64.0, 64.0, 64.0, 48.0], np.float32)
 AGREE = {"never_merge": (0.0, 5e-3, 1e-4), "always_merge": (1e9, 5e-2, 1e-3)}
 
 
+@contextlib.contextmanager
+def corr_version(version):
+    """Run the engine at ``DPVO_CORR_VERSION`` ``version`` (the port reads
+    ``corr_cuda.FUSED_VERSION`` at call time)."""
+    from dpvo_tpu_torch.ops import corr_cuda
+    old, corr_cuda.FUSED_VERSION = corr_cuda.FUSED_VERSION, version
+    try:
+        yield
+    finally:
+        corr_cuda.FUSED_VERSION = old
+
+
 def small_frames(n=16):
     ht, wd = SMALL_HW
     base = np.random.default_rng(11).integers(0, 255, (ht, 2 * wd, 3),
@@ -336,13 +425,15 @@ def small_drive(dev, thresh, network):
 def phase_agreement(dev):
     """The fp32 engine with the kernels on the card against the same
     engine with the plain versions on the CPU: same weights, scripted
-    centroids, fixed depth.  Structure must match exactly; poses within
-    the envelopes of the CPU parity tests."""
+    centroids, fixed depth, at each correlation version.  Structure must
+    match exactly; poses within the envelopes of the CPU parity tests."""
     import torch
     network = small_network()
-    for regime, (thresh, atol_t, atol_q) in AGREE.items():
-        p_gpu, s_gpu = small_drive(dev, thresh, network)
-        p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network)
+    for version, (regime, (thresh, atol_t, atol_q)) in (
+            (v, r) for v in (13, 12, 9) for r in AGREE.items()):
+        with corr_version(version):
+            p_gpu, s_gpu = small_drive(dev, thresh, network)
+            p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network)
         err_t = float(np.abs(p_gpu[:, :3] - p_cpu[:, :3]).max())
         qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1)) / np.maximum(
             np.linalg.norm(p_gpu[:, 3:], axis=-1)
@@ -350,13 +441,13 @@ def phase_agreement(dev):
         err_q = float(1.0 - qd.min())
         ok = (s_gpu == s_cpu and np.isfinite(p_gpu).all()
               and err_t <= atol_t and err_q <= atol_q)
-        log(f"[agree] {regime}: n={s_gpu[0]} edges={s_gpu[1]} "
+        log(f"[agree] {regime} v{version}: n={s_gpu[0]} edges={s_gpu[1]} "
             f"structure {'same' if s_gpu == s_cpu else 'DIFFERENT'}; "
             f"max|dt|={err_t:.3e} (tol {atol_t}) 1-min|q.q'|={err_q:.3e} "
             f"(tol {atol_q}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"engine on the card disagrees with the CPU "
-                             f"engine ({regime})")
+                             f"engine ({regime}, version {version})")
 
 
 # --- phase 4: the main path at full width --------------------------------
@@ -387,19 +478,31 @@ def device_profile(prof, wall_ms, n_frames, top=8):
                         for n, v in tops))
 
 
+# the kernels each correlation version's engine path must launch, and the
+# correlation kernel it must not
+PATH_KERNELS = {13: ({"corr_enc", "segment_softmax_sums", "segment_sums"},
+                     {"corr_fused"}),
+                12: ({"corr_fused", "segment_softmax_sums", "segment_sums"},
+                     {"corr_enc"})}
+
+
 def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
                  ht=480, wd=640, **overrides):
     """The engine as bench.py drives the JAX one: default config (bf16),
     synchronous keyframing, seeded random weights, motion_probe forced,
-    a 480x640 frame rolling 4 px per frame.  Launch counts are zeroed
-    just before the drive and read just after terminate().  Frames
-    n_warm .. n_frames - n_profile - 1 are timed one by one (synchronised
-    each frame); the last ``n_profile`` frames run under torch.profiler
-    for the device busy time."""
+    a 480x640 frame rolling 4 px per frame, at the current
+    DPVO_CORR_VERSION (``corr_version``).  Launch counts are zeroed just
+    before the drive and read just after terminate(); every kernel of the
+    version's path must have launched, and the other correlation kernel
+    not.  Frames n_warm .. n_frames - n_profile - 1 are timed one by one
+    (synchronised each frame); the last ``n_profile`` frames run under
+    torch.profiler for the device busy time."""
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
-    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.ops import _cuda, corr_cuda
+    version = corr_cuda.FUSED_VERSION
+    name = regime if version == 13 else f"{regime} v{version}"
     cfg = VOConfig(**{
         "BUFFER_SIZE": 256 if regime == "merge" else 1024,
         "MIXED_PRECISION": True, "LOOP_CLOSURE": False,
@@ -446,21 +549,23 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     sync()
     launches = dict(_cuda.launches)
     steady = sorted(ms[n_warm:])
-    out = dict(regime=regime, frames=n_frames, keyframes=slam.n,
+    out = dict(regime=name, frames=n_frames, keyframes=slam.n,
                median_ms=steady[len(steady) // 2], max_ms=steady[-1],
                edges_last=edges[-1], edges_max=max(edges),
                launches=launches, poses=poses)
-    log(f"[engine] {regime} {ht}x{wd} M={cfg.PATCHES_PER_FRAME}: "
+    log(f"[engine] {name} {ht}x{wd} M={cfg.PATCHES_PER_FRAME}: "
         f"{n_frames} frames, median {out['median_ms']:.2f} ms/frame "
         f"(frames {n_warm}..{n_timed - 1}, max {out['max_ms']:.2f}), "
         f"live edges {edges[-1]} (max {max(edges)}), keyframes {slam.n}, "
         f"launches {launches}")
-    log(f"[profile] {regime} frames {n_timed}..{n_frames - 1}: {profile}")
+    log(f"[profile] {name} frames {n_timed}..{n_frames - 1}: {profile}")
+    expect, absent = PATH_KERNELS[version]
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
           and len(tstamps) == n_frames
-          and all(launches.get(k, 0) > 0 for k in KERNELS))
+          and all(launches.get(k, 0) > 0 for k in expect)
+          and not any(launches.get(k, 0) for k in absent))
     if not ok:
-        raise SystemExit(f"engine drive ({regime}) failed: poses "
+        raise SystemExit(f"engine drive ({name}) failed: poses "
                          f"{poses.shape} finite={np.isfinite(poses).all()}, "
                          f"launches {launches}")
     return out
@@ -482,17 +587,30 @@ def main():
     log(f"[machine] kernel build+load {time.perf_counter() - t0:.2f}s "
         f"(nvcc {_cuda.build_seconds})")
 
+    _cuda.reset_launches()
     kern = phase_kernels(dev)
+    single_launches = _cuda.launches["corr_single"]
+    log(f"[kernels] corr_single is on no engine path (its callers are "
+        f"corr_grouped and the tests): its launches below are phase 2's "
+        f"({single_launches})")
     phase_agreement(dev)
     merge = drive_engine(dev, "merge")
     drive_engine(dev, "retain")
+    with corr_version(12):
+        raw = drive_engine(dev, "retain")
 
+    launches = {**merge["launches"],
+                "corr_fused": raw["launches"]["corr_fused"],
+                "corr_single": single_launches}
+    # the kernels line holds K1 in the version-12 drive's layout and K5 in
+    # corr_grouped's reference order
+    picks = {"corr_fused": (E_MAIN, "v12"), "corr_single": (E_MAIN, "ref")}
     line = {"kernels": []}
     for name, meta in KERNELS.items():
-        r = kern[name][E_MAIN]
+        r = kern[name][picks.get(name, E_MAIN)]
         line["kernels"].append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=merge["launches"][name],
+            replaces=meta["replaces"], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

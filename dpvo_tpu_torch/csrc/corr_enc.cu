@@ -34,55 +34,17 @@
 // coordinates are clamped in float before the int conversion, so they read
 // a window inside the padded map (never out of bounds); their fractional
 // part is NaN, and so is their output row.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "corr_window.cuh"
 
 namespace {
 
-constexpr int PAD = 8;            // zero border of the feature rings
-constexpr int R = 3;              // correlation radius
-constexpr int D = 2 * R + 2;      // tap window side (8)
-constexpr int P2 = 9;             // patch pixels (3 x 3)
-constexpr int C = 128;            // feature channels
+using namespace corr;
+
 constexpr int NL = 2;             // pyramid levels
-constexpr int DB = D - 1;         // blended side (7)
 constexpr int FEAT = NL * P2 * DB * DB;   // 882 features per edge
 constexpr int TAPS = NL * P2 * D * D;     // 1152 taps per edge
 constexpr int EB = 8;             // edges per block
 constexpr int NT = 192;           // threads per block
-constexpr int NW = NT / 32;       // warps per block
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// 8 consecutive values (16-byte aligned) -> fp32 registers
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
 struct Shared {
   float taps[EB][TAPS];          // (level, p, ty, tx) per edge
@@ -103,86 +65,19 @@ corr_enc_kernel(const T* __restrict__ g_all, const int* __restrict__ kk,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Shared& s = *reinterpret_cast<Shared*>(smem_raw);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int e0 = blockIdx.x * EB;
+  const int n_here = E - e0;
 
-  // --- per-(edge, level, pixel) window metadata ---
-  for (int i = tid; i < EB * NL * P2; i += NT) {
-    const int e = i / (NL * P2);
-    const int lp = i % (NL * P2);
-    const int l = lp / P2;
-    const int p = lp % P2;
-    const int edge = e0 + e;
-    long long off = 0;
-    float fx = 0.f, fy = 0.f;
-    if (edge < E) {
-      // coords (E, 2, 3, 3): [x | y] planes of the 3x3 patch
-      float cx = coords[(size_t)edge * 2 * P2 + p];
-      float cy = coords[(size_t)edge * 2 * P2 + P2 + p];
-      if (l == 1) { cx *= 0.25f; cy *= 0.25f; }
-      const int Hp = l == 0 ? Hp1 : Hp2;
-      const int Wp = l == 0 ? Wp1 : Wp2;
-      const float bxf = floorf(cx);
-      const float byf = floorf(cy);
-      fx = cx - bxf;
-      fy = cy - byf;
-      // clamp in float first: NaN and huge values land inside the map
-      const float bxc = fminf(fmaxf(bxf + (float)(PAD - R), 0.f),
-                              (float)(Wp - D));
-      const float byc = fminf(fmaxf(byf + (float)(PAD - R), 0.f),
-                              (float)(Hp - D));
-      const long long f = ff[edge];
-      off = ((f * Hp + (long long)byc) * Wp + (long long)bxc) * C;
-    }
-    s.win[e][lp] = off;
-    s.fx[e][lp] = fx;
-    s.fy[e][lp] = fy;
-  }
+  window_meta<NL, EB, NT>(coords, ff, e0, n_here, Hp1, Wp1, Hp2, Wp2,
+                          s.win, s.fx, s.fy);
   if (tid < EB) {
     const int edge = e0 + tid;
     s.grow[tid] = edge < E ? (long long)kk[edge] * P2 * C : 0;
   }
   __syncthreads();
 
-  // --- taps: one warp task = one window row (8 taps x 128 channels) ---
-  // lane reads 16-byte chunks j = lane + 32k (k < 4) of the 1024-value row:
-  // tap (lane >> 4) + 2k, channels 8 * (lane & 15) .. + 8
-  const int cbase = 8 * (lane & 15);
-  for (int task = warp; task < EB * NL * P2 * D; task += NW) {
-    const int e = task / (NL * P2 * D);
-    const int rem = task % (NL * P2 * D);
-    const int lp = rem / D;
-    const int row = rem % D;
-    const int l = lp / P2;
-    const int p = lp % P2;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (e0 + e < E) {
-      float g[8];
-      load8(g_all + s.grow[e] + p * C + cbase, g);
-      const T* fm = l == 0 ? fmap1 : fmap2;
-      const int Wp = l == 0 ? Wp1 : Wp2;
-      const T* rowp = fm + s.win[e][lp] + (long long)row * Wp * C;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float v[8];
-        load8(rowp + 8 * (lane + 32 * k), v);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[k] = fmaf(g[c], v[c], acc[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
-    }
-    if ((lane & 15) == 0) {
-      float* t = &s.taps[e][(lp * D + row) * D];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) t[(lane >> 4) + 2 * k] = acc[k];
-    }
-  }
+  window_taps<T, NL, EB, NT>(g_all, s.grow, fmap1, fmap2, Wp1, Wp2, n_here,
+                             s.win, s.taps);
   __syncthreads();
 
   // --- bilinear blend 8x8 -> 7x7, rounded to the compute type ---
@@ -192,13 +87,8 @@ corr_enc_kernel(const T* __restrict__ g_all, const int* __restrict__ kk,
     const int lp = r / (DB * DB);
     const int dy = (r % (DB * DB)) / DB;
     const int dx = r % DB;
-    const float fx = s.fx[e][lp];
-    const float fy = s.fy[e][lp];
-    const float* t = &s.taps[e][lp * D * D];
-    const float ty0 = (1.f - fy) * t[dy * D + dx] + fy * t[(dy + 1) * D + dx];
-    const float ty1 = (1.f - fy) * t[dy * D + dx + 1]
-                      + fy * t[(dy + 1) * D + dx + 1];
-    const float v = (1.f - fx) * ty0 + fx * ty1;
+    const float v = blend(&s.taps[e][lp * D * D], s.fx[e][lp], s.fy[e][lp],
+                          dy, dx);
     s.feat[r][e] = to_f(from_f<T>(v));
   }
   __syncthreads();

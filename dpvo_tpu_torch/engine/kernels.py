@@ -8,8 +8,10 @@ every row it sees is live.
 
 - ``track_frame_u8`` / ``track_frame`` — Patchifier forward on one frame,
   ring writes, damped-linear motion model and depth init;
-- ``update_step`` — edge metadata, reprojection, the fused correlation +
-  corr-encoder kernel, the recurrent update, local BA;
+- ``update_step`` — edge metadata, reprojection, the correlation (the
+  fused correlation + corr-encoder kernel, or at ``DPVO_CORR_VERSION`` other
+  than 13 the two-level correlation kernel in that version's layout), the
+  recurrent update, local BA;
 - ``motion_probe`` — median flow delta for the init motion check;
 - ``flowmag_pair`` / ``flowmag_two`` — keyframe motion magnitude;
 - ``compact_frames``, ``append_edges``, ``permute_edges``,
@@ -24,8 +26,8 @@ from ..models.update import DIM, Update
 from ..models.vonet import (Patchifier, image_gradient, normalize_images,
                             select_centroids)
 from ..ops import ba, graph, lie, projective as pops, scatter
-from ..ops import corr as corr_ops
-from ..ops.corr_cuda import PAD, corr_enc
+from ..ops import corr as corr_ops, corr_cuda
+from ..ops.corr_cuda import PAD
 from .state import DeviceState
 
 
@@ -118,12 +120,22 @@ def track_frame_u8(ds, patchifier, image_u8, intrinsics, n, fac,
 # ---------------------------------------------------------------------------
 
 def _corr_act(ds, update_mod, coords, kk_mod, jj_mod):
-    """Fused two-level correlation + corr-encoder first matmul."""
+    """The corr features of the edges, as CorrDense takes them: at
+    ``corr_cuda.FUSED_VERSION`` 13 the fused two-level correlation +
+    corr-encoder first matmul ("enc"), otherwise the two-level correlation
+    of the gathered patch rows in that version's layout ("raw")."""
     K = ds.gmap.shape[0]
     g_all = ds.gmap.reshape(K, -1, ds.gmap.shape[-1])
+    c = coords.permute(0, 3, 1, 2).contiguous()
+    version = corr_cuda.FUSED_VERSION
+    if version != 13:
+        feat = corr_cuda.corr_fused(
+            g_all[kk_mod], ds.fmap1, ds.fmap2, c, jj_mod.int(),
+            corr_cuda.layout_for_version(version), ds.gmap.dtype)
+        return ("raw", feat.reshape(c.shape[0], -1))
     w_raw = update_mod.corr1.raw_kernel().to(ds.gmap.dtype)
-    act = corr_enc(g_all, kk_mod.int(), w_raw, ds.fmap1, ds.fmap2,
-                   coords.permute(0, 3, 1, 2).contiguous(), jj_mod.int())
+    act = corr_cuda.corr_enc(g_all, kk_mod.int(), w_raw, ds.fmap1, ds.fmap2,
+                             c, jj_mod.int())
     return ("enc", act)
 
 

@@ -23,9 +23,12 @@ class CorrDense(nn.Module):
 
     ``weight`` is checkpoint-shaped (DIM, 2*49*p*p) over the reference's
     interleaved (dx, dy, py, px, level) feature order.  ``forward`` takes
-    either interleaved features (E, 882), or ``("enc", act)`` where ``act``
-    holds the pre-bias activations that ``ops.corr_cuda.corr_enc`` already
-    computed in-kernel with ``raw_kernel()``; only the bias remains.
+    either interleaved features (E, 882); or ``("raw", feat)`` with kernel
+    layout features of width 882 (raw), 1152 (v10) or 2304 (v12) from
+    ``ops.corr_cuda.corr_fused``, multiplied by the weight rows mapped to
+    that layout (``raw_kernel``); or ``("enc", act)`` where ``act`` holds
+    the pre-bias activations that ``ops.corr_cuda.corr_enc`` already
+    computed in-kernel with ``raw_kernel()``, so only the bias remains.
     """
 
     def __init__(self, in_dim, features):
@@ -35,16 +38,20 @@ class CorrDense(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
         nn.init.uniform_(self.bias, -in_dim ** -0.5, in_dim ** -0.5)
 
-    def raw_kernel(self):
-        """(2*RAW_DIM, DIM) kernel with rows in the kernel's raw order."""
-        return corr_cuda.raw_enc_kernel(self.weight.t())
+    def raw_kernel(self, in_dim=2 * corr_cuda.RAW_DIM):
+        """(in_dim, DIM) kernel with rows in the kernel feature layout of
+        that width (default the raw order)."""
+        return corr_cuda.raw_enc_kernel(self.weight.t(), in_dim)
 
     def forward(self, corr):
         if isinstance(corr, tuple):
-            form, act = corr
-            if form != "enc":
-                raise ValueError(f"unknown corr form {form!r}")
-            return act.to(self.bias.dtype) + self.bias
+            form, feat = corr
+            if form == "enc":
+                return feat.to(self.bias.dtype) + self.bias
+            if form == "raw":
+                return (feat.to(self.weight.dtype)
+                        @ self.raw_kernel(feat.shape[-1]) + self.bias)
+            raise ValueError(f"unknown corr form {form!r}")
         return F.linear(corr.to(self.weight.dtype), self.weight, self.bias)
 
 
@@ -83,7 +90,8 @@ class Update(nn.Module):
                 compact_meta=None, g_cap=None):
         """One recurrent update.
 
-        net, inp (E, DIM); corr (E, 882) interleaved or ("enc", act);
+        net, inp (E, DIM); corr (E, 882) interleaved, ("raw", feat) or
+        ("enc", act) (see CorrDense);
         ii, jj, kk (E,) int; valid (E,) bool.  ``nbrs`` (ix, jx) and
         ``compact_meta`` (cm_kk, cm_ij) with ``g_cap`` are computed here
         when not given (the engine shares one sort between them and BA).

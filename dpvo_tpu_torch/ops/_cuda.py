@@ -4,7 +4,8 @@ The kernels have a plain C interface and are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into one shared library, loaded with ``ctypes``.  The
 build happens at first use, one ``nvcc`` per source started together, into
 ``dpvo_tpu_torch/_build/`` (listed in ``.gitignore``); the library name
-carries a hash of the sources and flags, so an edited source rebuilds.
+carries a hash of the sources, headers and flags, so an edited file
+rebuilds.
 
 ``launches`` counts kernel launches by name: each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went through.
@@ -27,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("corr_enc.cu", "segment_sums.cu")
+SOURCES = ("corr_enc.cu", "corr_raw.cu", "segment_sums.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -41,6 +42,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dpvo_corr_enc_f32": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
     "dpvo_corr_enc_bf16": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
+    "dpvo_corr_raw": [_I] * 4 + [_VP] * 6 + [_I] * 6 + [_VP],
     "dpvo_segment_softmax_sums": [_VP] * 5 + [_I] * 3 + [_VP],
     "dpvo_segment_sums": [_VP] * 3 + [_I] * 3 + [_VP],
 }
@@ -60,9 +62,9 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):    # sources and headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -1,17 +1,34 @@
-"""Fused two-level correlation + corr-encoder first matmul (CUDA kernel and
-its plain twin).
+"""Patch correlation on zero-padded feature rings: the CUDA kernels and
+their plain twins.
 
-Counterpart of ``dpvo_tpu/ops/corr_pallas.py::corr_pallas_enc``.  Feature
-rings are stored zero-padded (``pad_fmap``), so every 8x8 tap window is an
-in-bounds read and out-of-image taps read zeros.  The kernel takes edges in
-table order: no frame grouping, no tile padding, no dead tiles.
+Counterpart of ``dpvo_tpu/ops/corr_pallas.py``:
 
-Feature order: the kernel blends into the raw (level, p, dy, dx) order; the
+- ``corr_enc`` (K2, ``csrc/corr_enc.cu``): two-level correlation fused with
+  the corr encoder's first matmul, ``corr_pallas_enc``;
+- ``corr_fused`` (K1, ``csrc/corr_raw.cu``): two-level correlation in the
+  raw, v10 or v12 feature layout, ``corr_pallas_fused``;
+- ``corr_single`` (K5, the same source) and ``corr_grouped``: one level, raw
+  or the reference's (E, 7, 7, 3, 3) order, ``corr_pallas``.
+
+Feature rings are stored zero-padded (``pad_fmap``), so every 8x8 tap
+window is an in-bounds read and out-of-image taps read zeros.  The kernels
+take edges in table order with a ring slot per edge (``ff_rows``): no frame
+grouping, no tile padding.  ``n_live_rows`` zeroes every row at or past it,
+as the TPU kernels zero their dead tail tiles.
+
+Feature order: the kernels blend into the raw (level, p, dy, dx) order; the
 reference's interleaved corr-encoder rows are (dx, dy, py, px, level).
-``raw_enc_kernel`` reorders the checkpoint-shaped corr1 kernel's ROWS to the
-raw order (``raw_to_ref_perm``), which keeps the matmul exact.
+``raw_enc_kernel`` reorders the checkpoint-shaped corr1 kernel's ROWS to a
+kernel layout (``raw_to_ref_perm``, ``v10_row_map``, ``v12_row_map``),
+which keeps the matmul exact.
+
+``FUSED_VERSION`` is the port's read of ``DPVO_CORR_VERSION`` (default 13):
+the engine reads it at call time, runs K2 at 13 and K1 in the layout of
+``layout_for_version`` otherwise.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -22,9 +39,23 @@ from . import _cuda
 PAD = 8        # zero border on top/left/bottom (and at least PAD on right)
 R = 3          # correlation radius (2R+2 = 8 tap rows/cols)
 D = 2 * R + 2  # tap window size
+DW = 16        # the TPU kernels' aligned window width (v12 lanes per row)
 P2 = 9         # patch pixels (3x3)
 C = 128        # feature channels
 RAW_DIM = P2 * (D - 1) * (D - 1)   # per-level feature dim (441)
+V10_DIM = P2 * 128                 # v10 feature dim incl. dead lanes
+V12_DIM = P2 * 256                 # v12 feature dim incl. dead lanes
+
+FUSED_VERSION = int(os.environ.get("DPVO_CORR_VERSION", "13"))
+
+# output layouts of csrc/corr_raw.cu (its Layout enum)
+_LAYOUTS = {"raw": 0, "v10": 1, "v12": 2, "ref": 3}
+
+
+def layout_for_version(version):
+    """K1's output layout for a ``DPVO_CORR_VERSION``: v12 for 12 (and 13,
+    whose standalone core is v12), v10 for 10, raw for the v4-family."""
+    return {12: "v12", 13: "v12", 10: "v10"}.get(version, "raw")
 
 
 def padded_hw(H, W):
@@ -40,27 +71,58 @@ def pad_fmap(fmap):
     return F.pad(fmap, (0, 0, PAD, Wp - W - PAD, PAD, Hp - H - PAD))
 
 
+def _ref_row(level, py, px, dy, dx):
+    """Row of the reference's interleaved (dx, dy, py, px, level) order."""
+    return (((dx * (D - 1) + dy) * 3 + py) * 3 + px) * 2 + level
+
+
 def raw_to_ref_perm():
     """Row permutation mapping the raw (level, p, dy, dx) feature order to
     the reference's interleaved (dx, dy, py, px, level) order."""
-    ref = np.empty(2 * RAW_DIM, np.int64)
+    return np.array([_ref_row(level, py, px, dy, dx)
+                     for level in range(2) for py in range(3)
+                     for px in range(3) for dy in range(D - 1)
+                     for dx in range(D - 1)], np.int64)
+
+
+def _lane_row_map(width):
+    """Rows of the (p, level, dy < 8, dx < width) lane layouts; dead lanes
+    (dy or dx >= 7) map to the zero row 2*RAW_DIM."""
+    rows = np.full(P2 * 2 * D * width, 2 * RAW_DIM, np.int64)
     i = 0
-    for level in range(2):
-        for py in range(3):
-            for px in range(3):
-                for dy in range(D - 1):
-                    for dx in range(D - 1):
-                        ref[i] = (((dx * (D - 1) + dy) * 3 + py) * 3
-                                  + px) * 2 + level
+    for py in range(3):
+        for px in range(3):
+            for level in range(2):
+                for dy in range(D):
+                    for dx in range(width):
+                        if dy < D - 1 and dx < D - 1:
+                            rows[i] = _ref_row(level, py, px, dy, dx)
                         i += 1
-    return ref
+    return rows
 
 
-def raw_enc_kernel(kernel):
+def v10_row_map():
+    """Rows of the v10 layout (E, 9, 128), lanes level*64 + dy*8 + dx."""
+    return _lane_row_map(D)
+
+
+def v12_row_map():
+    """Rows of the v12 layout (E, 9, 256), lanes level*128 + dy*16 + dx."""
+    return _lane_row_map(DW)
+
+
+def raw_enc_kernel(kernel, in_dim=2 * RAW_DIM):
     """(2*RAW_DIM, DIMo) corr1 kernel in (in, out) layout with reference
-    row order -> the same rows in the raw feature order."""
-    perm = torch.as_tensor(raw_to_ref_perm(), device=kernel.device)
-    return kernel[perm].contiguous()
+    row order -> the rows of a kernel feature layout of width ``in_dim``:
+    882 (raw), 1152 (v10) or 2304 (v12); dead lanes get a zero row."""
+    if in_dim == 2 * RAW_DIM:
+        rows = raw_to_ref_perm()
+    elif in_dim in (V10_DIM, V12_DIM):
+        rows = v10_row_map() if in_dim == V10_DIM else v12_row_map()
+        kernel = torch.cat([kernel, kernel.new_zeros((1, kernel.shape[1]))])
+    else:
+        raise ValueError(f"no corr feature layout of width {in_dim}")
+    return kernel[torch.as_tensor(rows, device=kernel.device)].contiguous()
 
 
 def _window_taps(g_rows, fmap, c, ff):
@@ -85,26 +147,78 @@ def _window_taps(g_rows, fmap, c, ff):
     return taps, fx, fy
 
 
-def corr_enc_plain(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded,
-                   coords, ff_rows, chunk=4096):
-    """Plain PyTorch version of ``corr_enc`` (same arithmetic order:
-    fp32 taps, y-then-x blend, cast to the compute dtype, product with
-    fp32 accumulation).  Chunked over edges to bound the gathered
-    windows."""
+def _blend_plain(g_pre, levels, coords, ff_rows, chunk=4096):
+    """fp32 blended correlation (E, L, P2, 7, 7) of g_pre (E, P2, C)
+    against ``levels`` ((fmap_padded, coord scale), ...): fp32 taps, y then
+    x blend.  Chunked over edges to bound the gathered windows."""
     E = coords.shape[0]
     outs = []
     for s in range(0, E, chunk):
         c = coords[s:s + chunk].float()
-        g = g_all[kk_rows[s:s + chunk].long()]            # (e, P2, C)
+        g = g_pre[s:s + chunk]
         ff = ff_rows[s:s + chunk]
-        levels = []
-        for fmap, scale in ((fmap1_padded, 1.0), (fmap2_padded, 0.25)):
+        lv = []
+        for fmap, scale in levels:
             taps, fx, fy = _window_taps(g, fmap, c * scale, ff)
             fx, fy = fx[..., None, None], fy[..., None, None]
             ty = (1 - fy) * taps[:, :, :-1, :] + fy * taps[:, :, 1:, :]
-            levels.append((1 - fx) * ty[..., :-1] + fx * ty[..., 1:])
-        feat = torch.stack(levels, 1).reshape(c.shape[0], 2 * RAW_DIM)
-        outs.append(feat.to(w_raw.dtype) @ w_raw)
+            lv.append((1 - fx) * ty[..., :-1] + fx * ty[..., 1:])
+        outs.append(torch.stack(lv, 1))
+    if not outs:
+        return torch.zeros((0, len(levels), P2, D - 1, D - 1),
+                           device=coords.device)
+    return torch.cat(outs)
+
+
+def _zero_tail(raw, n_live_rows):
+    if n_live_rows is not None and n_live_rows < raw.shape[0]:
+        raw[max(n_live_rows, 0):] = 0.0
+    return raw
+
+
+def corr_fused_plain(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows,
+                     layout="raw", out_dtype=torch.float32,
+                     n_live_rows=None):
+    """Plain PyTorch version of ``corr_fused`` (fp32 taps, y-then-x blend,
+    one rounding to ``out_dtype``; dead lanes and rows zero)."""
+    raw = _zero_tail(_blend_plain(
+        g_pre, ((fmap1_padded, 1.0), (fmap2_padded, 0.25)), coords,
+        ff_rows), n_live_rows)                          # (E, 2, P2, 7, 7)
+    if layout == "raw":
+        return raw.to(out_dtype)
+    if layout not in ("v10", "v12"):
+        raise ValueError(f"corr_fused layout must be raw, v10 or v12, "
+                         f"not {layout!r}")
+    E = raw.shape[0]
+    width = D if layout == "v10" else DW
+    out = raw.new_zeros((E, P2, 2, D, width))
+    out[..., :D - 1, :D - 1] = raw.transpose(1, 2)
+    return out.reshape(E, P2, -1).to(out_dtype)
+
+
+def corr_single_plain(g_pre, fmap_padded, coords, ff_rows, raw=False,
+                      out_dtype=torch.float32, n_live_rows=None):
+    """Plain PyTorch version of ``corr_single``."""
+    out = _zero_tail(_blend_plain(g_pre, ((fmap_padded, 1.0),), coords,
+                                  ff_rows), n_live_rows)[:, 0]
+    if not raw:           # (E, p, dy, dx) -> (E, dx, dy, py, px)
+        out = out.reshape(-1, 3, 3, D - 1, D - 1).permute(0, 4, 3, 1, 2)
+    return out.to(out_dtype).contiguous()
+
+
+def corr_enc_plain(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded,
+                   coords, ff_rows, chunk=4096):
+    """Plain PyTorch version of ``corr_enc``: ``corr_fused_plain`` in the
+    raw layout, cast to the compute dtype, then the product with fp32
+    accumulation.  Chunked over edges to bound the gathered windows."""
+    E = coords.shape[0]
+    outs = []
+    for s in range(0, E, chunk):
+        g = g_all[kk_rows[s:s + chunk].long()]            # (e, P2, C)
+        feat = corr_fused_plain(g, fmap1_padded, fmap2_padded,
+                                coords[s:s + chunk], ff_rows[s:s + chunk],
+                                "raw", w_raw.dtype)
+        outs.append(feat.reshape(g.shape[0], -1) @ w_raw)
     if not outs:
         return torch.zeros((0, w_raw.shape[1]), dtype=w_raw.dtype,
                            device=w_raw.device)
@@ -157,3 +271,86 @@ def corr_enc(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded, coords,
     _cuda.check(code, "corr_enc")
     _cuda.launches["corr_enc"] += 1
     return out
+
+
+def _corr_raw(name, levels, layout, shape, g_pre, fmaps, coords, ff_rows,
+              out_dtype, n_live_rows):
+    """Launch csrc/corr_raw.cu at ``levels`` levels into ``layout``."""
+    dt = g_pre.dtype
+    kinds = (torch.float32, torch.bfloat16)
+    if dt not in kinds or out_dtype not in kinds:
+        raise ValueError(f"{name} supports float32 and bfloat16, not "
+                         f"{dt} -> {out_dtype}")
+    E = coords.shape[0]
+    _cuda.require(g_pre, "g_pre", dt, (E, P2, C))
+    Fn = fmaps[0].shape[0]
+    for i, fm in enumerate(fmaps, 1):
+        _cuda.require(fm, f"fmap{i}_padded", dt, (Fn, None, None, C))
+        if min(fm.shape[1:3]) < D:
+            raise ValueError("padded feature maps must be at least 8x8")
+    _cuda.require(coords, "coords", torch.float32, (E, 2, 3, 3))
+    _cuda.require(ff_rows, "ff_rows", torch.int32, (E,))
+    n_live = E if n_live_rows is None else min(max(int(n_live_rows), 0), E)
+    f1, f2 = fmaps[0], fmaps[-1]
+    out = torch.empty((E, *shape), dtype=out_dtype, device=coords.device)
+    code = _cuda.lib().dpvo_corr_raw(
+        levels, int(dt == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _LAYOUTS[layout], g_pre.data_ptr(), ff_rows.data_ptr(),
+        f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), out.data_ptr(), E,
+        n_live, f1.shape[1], f1.shape[2], f2.shape[1], f2.shape[2],
+        _cuda.stream_ptr(out.device))
+    _cuda.check(code, name)
+    _cuda.launches[name] += 1
+    return out
+
+
+def corr_fused(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows,
+               layout="raw", out_dtype=torch.float32, n_live_rows=None):
+    """Two-level correlation (K1).
+
+    g_pre        (E, P2, C) patch feature rows, bf16 or fp32
+    fmap1_padded (F, Hp1, Wp1, C), fmap2_padded (F, Hp2, Wp2, C) rings of
+                 g_pre's dtype; level 2 samples coords / 4
+    coords       (E, 2, 3, 3) fp32 level-1 pixel coords (unpadded)
+    ff_rows      (E,) int32 ring slot of each edge's target frame
+    layout       "raw" -> (E, 2, P2, 7, 7) in (level, p, dy, dx) order;
+                 "v10" -> (E, P2, 128), lanes level*64 + dy*8 + dx;
+                 "v12" -> (E, P2, 256), lanes level*128 + dy*16 + dx;
+                 dead lanes (dy or dx >= 7) are zero
+    n_live_rows  rows at or past it are zero (default: none)
+    -> features in ``out_dtype``.
+    """
+    if coords.device.type == "cpu":
+        return corr_fused_plain(g_pre, fmap1_padded, fmap2_padded, coords,
+                                ff_rows, layout, out_dtype, n_live_rows)
+    shapes = {"raw": (2, P2, D - 1, D - 1), "v10": (P2, 128),
+              "v12": (P2, 256)}
+    if layout not in shapes:
+        raise ValueError(f"corr_fused layout must be raw, v10 or v12, "
+                         f"not {layout!r}")
+    return _corr_raw("corr_fused", 2, layout, shapes[layout], g_pre,
+                     (fmap1_padded, fmap2_padded), coords, ff_rows,
+                     out_dtype, n_live_rows)
+
+
+def corr_single(g_pre, fmap_padded, coords, ff_rows, raw=False,
+                out_dtype=torch.float32, n_live_rows=None):
+    """One-level correlation (K5): the arguments of ``corr_fused`` at one
+    ring, sampled at ``coords`` as given.  -> (E, 7, 7, 3, 3) in the
+    reference's [dx, dy, py, px] order, or with ``raw`` (E, P2, 7, 7) in
+    (p, dy, dx) order, in ``out_dtype``."""
+    if coords.device.type == "cpu":
+        return corr_single_plain(g_pre, fmap_padded, coords, ff_rows, raw,
+                                 out_dtype, n_live_rows)
+    shape = (P2, D - 1, D - 1) if raw else (D - 1, D - 1, 3, 3)
+    return _corr_raw("corr_single", 1, "raw" if raw else "ref", shape,
+                     g_pre, (fmap_padded,), coords, ff_rows, out_dtype,
+                     n_live_rows)
+
+
+def corr_grouped(gmap, fmap_padded, coords, kidx, ff_rows):
+    """Gather the patch rows gmap[kidx] ((K, 3, 3, C) -> (E, P2, C)) and
+    run ``corr_single``: (E, 7, 7, 3, 3) fp32 in the reference's order."""
+    E = coords.shape[0]
+    g_pre = gmap[kidx.long()].reshape(E, P2, gmap.shape[-1])
+    return corr_single(g_pre, fmap_padded, coords, ff_rows)

@@ -8,7 +8,10 @@ suite's conftest configures JAX, which that machine need not have).
 Tolerances: fp32 correlation atol 1e-4 (summation order only); bf16
 correlation one bf16 step of the output's magnitude (1e-2 relative); the
 segment sums rtol 2e-5 / atol 1e-5, as the CPU tests hold the plain
-versions to the Pallas kernels.
+versions to the Pallas kernels.  The raw-feature kernels (K1 ``corr_fused``
+in the raw, v10 and v12 layouts, K5 ``corr_single`` raw and in the
+reference order) are held to their plain versions the same way, dead lanes
+and rows past ``n_live_rows`` included.
 """
 import numpy as np
 import pytest
@@ -78,6 +81,64 @@ def test_corr_enc_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         corr_cuda.corr_enc(g_all, kk, w_raw, f1, f2,
                            coords.transpose(2, 3), ff)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _raw_inputs(dev, dtype, E=200):
+    g_all, kk, _, f1, f2, coords, ff = _corr_inputs(dev, dtype, E=E, seed=1)
+    return g_all[kk.long()].contiguous(), f1, f2, coords, ff
+
+
+def _close(got, want, out_dtype):
+    atol = 1e-4 if out_dtype == F32 else 1e-2 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("layout", ["raw", "v10", "v12"])
+@pytest.mark.parametrize("dtype,out_dtype", [(F32, F32), (BF16, BF16),
+                                             (BF16, F32)])
+def test_corr_fused_kernel_vs_plain(dev, layout, dtype, out_dtype):
+    args = _raw_inputs(dev, dtype)
+    before = _cuda.launches["corr_fused"]
+    got = corr_cuda.corr_fused(*args, layout, out_dtype)
+    want = corr_cuda.corr_fused_plain(*args, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert _cuda.launches["corr_fused"] == before + 1
+    assert got.shape == want.shape and got.dtype == out_dtype
+    _close(got, want, out_dtype)
+
+
+@pytest.mark.parametrize("raw", [True, False], ids=["raw", "ref"])
+@pytest.mark.parametrize("dtype,out_dtype", [(F32, F32), (BF16, F32)])
+def test_corr_single_kernel_vs_plain(dev, raw, dtype, out_dtype):
+    g_pre, f1, _, coords, ff = _raw_inputs(dev, dtype)
+    before = _cuda.launches["corr_single"]
+    got = corr_cuda.corr_single(g_pre, f1, coords, ff, raw, out_dtype)
+    want = corr_cuda.corr_single_plain(g_pre, f1, coords, ff, raw,
+                                       out_dtype)
+    torch.cuda.synchronize()
+    assert _cuda.launches["corr_single"] == before + 1
+    assert got.shape == want.shape
+    _close(got, want, out_dtype)
+
+
+def test_corr_raw_kernels_zero_tail(dev):
+    g_pre, f1, f2, coords, ff = _raw_inputs(dev, F32, E=77)
+    n = 40
+    for layout in ("raw", "v12"):
+        full = corr_cuda.corr_fused(g_pre, f1, f2, coords, ff, layout)
+        cut = corr_cuda.corr_fused(g_pre, f1, f2, coords, ff, layout,
+                                   n_live_rows=n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(cut[:n], full[:n], rtol=0, atol=0)
+        assert not cut[n:].any()
+    cut = corr_cuda.corr_single(g_pre, f1, coords, ff, n_live_rows=n)
+    want = corr_cuda.corr_single_plain(g_pre, f1, coords, ff, n_live_rows=n)
+    torch.cuda.synchronize()
+    assert not cut[n:].any()
+    _close(cut, want, F32)
 
 
 def _segments(dev, E, D, n_groups, seed):

@@ -7,7 +7,9 @@ regime, as tests/test_engine_parity.py does), the same scripted centroids
 and fixed pre-init depth, motion_probe forced, fp32, synchronous keyframe
 decisions.  On CPU the JAX engine runs its XLA path (generic SoftAgg,
 cumsum-difference BA coupling), so this also holds the port's compact /
-kernel formulation against the generic one.
+kernel formulation against the generic one.  The JAX engine runs once per
+regime; the port runs against it at ``DPVO_CORR_VERSION`` 13, 12 and 9
+(``corr_cuda.FUSED_VERSION``, set per drive).
 
 Structure is asserted exactly (keyframe count, live edges, keyframe
 timestamps, delta keys); trajectories within the envelopes
@@ -26,6 +28,7 @@ from dpvo_tpu.config import VOConfig as JaxConfig
 from dpvo_tpu.engine import DPVO as JaxDPVO
 from dpvo_tpu_torch.config import VOConfig
 from dpvo_tpu_torch.engine import DPVO
+from dpvo_tpu_torch.ops import corr_cuda
 from dpvo_tpu_torch.utils.checkpoint import params_from_jax
 
 torch.set_num_threads(1)
@@ -70,9 +73,20 @@ def drive(slam, frames):
     return poses, tstamps, state
 
 
-@pytest.fixture(scope="module", params=sorted(REGIMES))
-def runs(request):
-    thresh, atol_t, atol_q = REGIMES[request.param]
+@pytest.fixture(scope="module")
+def jax_refs():
+    """regime -> (flax params, JAX engine drive), each drive run once."""
+    cache = {}
+
+    def get(regime):
+        if regime not in cache:
+            cache[regime] = _jax_reference(REGIMES[regime][0])
+        return cache[regime]
+
+    return get
+
+
+def _jax_reference(thresh):
     old = jax.config.jax_default_matmul_precision
     jax.config.update("jax_default_matmul_precision", "highest")
     try:
@@ -82,14 +96,31 @@ def runs(request):
         u = jax.tree.map(np.asarray, init.params_update)
         for k in ("kernel", "bias"):
             u["params"]["d"][k] = u["params"]["d"][k] * 0.02
-        frames = make_frames()
-        ref = drive(JaxDPVO(jcfg, network=(p, u), ht=HT, wd=WD), frames)
+        ref = drive(JaxDPVO(jcfg, network=(p, u), ht=HT, wd=WD),
+                    make_frames())
     finally:
         jax.config.update("jax_default_matmul_precision", old)
-    port = drive(DPVO(VOConfig(**TINY, KEYFRAME_THRESH=thresh),
-                      network=params_from_jax(p, u), ht=HT, wd=WD,
-                      device="cpu"), frames)
-    return request.param, ref, port, atol_t, atol_q
+    return (p, u), ref
+
+
+# the port at DPVO_CORR_VERSION 13 (the fused correlation + corr-encoder
+# kernel) and at 12 and 9 (the two-level correlation kernel in the v12 and
+# raw layouts, then CorrDense's row-mapped product), against one JAX drive
+RUNS = [(regime, v) for regime in sorted(REGIMES) for v in (13, 12, 9)]
+
+
+@pytest.fixture(scope="module", params=RUNS,
+                ids=[r if v == 13 else f"{r}-v{v}" for r, v in RUNS])
+def runs(request, jax_refs):
+    regime, version = request.param
+    thresh, atol_t, atol_q = REGIMES[regime]
+    (p, u), ref = jax_refs(regime)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(corr_cuda, "FUSED_VERSION", version)
+        port = drive(DPVO(VOConfig(**TINY, KEYFRAME_THRESH=thresh),
+                          network=params_from_jax(p, u), ht=HT, wd=WD,
+                          device="cpu"), make_frames())
+    return regime, ref, port, atol_t, atol_q
 
 
 def test_engine_structure_matches(runs):

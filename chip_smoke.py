@@ -8,27 +8,39 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
 1. machine: the card's name and power limit, and the kernel build time;
 2. kernels: every CUDA kernel against its plain PyTorch version on the
    card, at main-path shapes (480x640 frames, M=96, 36-frame rings,
-   k_cap=4096) for the merge (6144 live edges), the JAX engine's lagged
+   k_cap=4096) for the synchronous merge (6144 live edges), the lagged
    merge (14336) and the retain (45312) edge counts, with max error,
    tolerance, times and bound: K2 corr_enc, K1 corr_fused (bf16, raw, v10
    and v12 layouts), K5 corr_single (level-1 ring, fp32 out, raw and
-   reference order), K3/K4 the segment sums;
+   reference order), K3/K4 the segment sums, and at 6144 and 45312 the
+   five D3 probes (corr_probe, fp32 out of bf16 rings) beside K1 raw; then
+   the D3 path itself, ``scripts/dev/corr_variants_torch.py``'s probe
+   entry point at 6144 edges;
 3. agreement: the fp32 engine with the kernels on the card against the
    same engine with the plain versions on the CPU, on 16 small frames
    (same seeded weights, scripted centroids, fixed depth), in the
    never-merge and always-merge regimes, at DPVO_CORR_VERSION 13 (K2), 12
-   and 9 (K1 in the v12 and raw layouts);
-4. engine: the main path at full width — 480x640, M=96, the default
-   config with MIXED_PRECISION (bf16), ASYNC_KEYFRAME=False, seeded random
-   weights, motion_probe forced — in the merge regime (KEYFRAME_THRESH=1e9)
-   for 40 frames, then the retain regime (KEYFRAME_THRESH=0), then the
-   retain regime at DPVO_CORR_VERSION 12 (the raw-feature path), with
-   per-frame times, live edges, each kernel's launch count (every kernel
-   of the drive's path > 0, the other correlation kernel 0) and finite
-   poses;
-5. the kernels line (one JSON object; ``launches`` from the merge drive,
-   for corr_fused from the version-12 drive, for corr_single, which no
-   engine path runs, from phase 2), the card line, then the last line
+   and 9 (K1 in the v12 and raw layouts), synchronous keyframing; and the
+   always-merge drive with lagged keyframing (ASYNC_KEYFRAME_LAG=3,
+   BATCH=2);
+4. engine, synchronous keyframing: the main path at full width — 480x640,
+   M=96, the default config with MIXED_PRECISION (bf16) but
+   ASYNC_KEYFRAME=False, seeded random weights, motion_probe forced — in
+   the merge regime (KEYFRAME_THRESH=1e9) for 40 frames, then the retain
+   regime (KEYFRAME_THRESH=0), then the retain regime at
+   DPVO_CORR_VERSION 12 (the raw-feature path), with per-frame times, live
+   edges, each kernel's launch count (every kernel of the drive's path >
+   0, the other correlation kernel 0) and finite poses;
+5. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
+   default configuration (lagged keyframing), 30 warm frames and two
+   40-frame windows each, then 5 profiled frames: ms/frame per window,
+   live edges, the device idle share, launch counts; the merge drive's TUM
+   trajectory and PLY map are written to a temporary directory and read
+   back;
+6. the kernels line (one JSON object; ``launches`` from the bench merge
+   drive, for corr_fused from the version-12 drive, for corr_single,
+   which no engine path runs, from phase 2, for the probes from the D3
+   path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -39,7 +51,9 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -49,6 +63,9 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor bf16 / fp32 FMA
 TOL_K2 = 1e-2     # max|kernel - plain| / max|plain|: one bf16 step
 TOL_F32 = 1e-4    # max|kernel - plain| of fp32 correlation: summation order
 TOL_SEG = (2e-5, 1e-5)                       # rtol, atol for fp32 sums
+TOL_PROBE = 1e-5  # max|kernel - plain| / max|plain|: fp32 sums of exact
+                  # bf16 products, summation order only
+PROBES = ("p_load", "p_convert", "p_roll", "p_mult_subl", "p_full_dot")
 
 KERNELS = {
     "corr_enc": dict(source="dpvo_tpu_torch/csrc/corr_enc.cu",
@@ -62,6 +79,9 @@ KERNELS = {
         replaces="dpvo_tpu/ops/agg_pallas.py:89"),
     "segment_sums": dict(source="dpvo_tpu_torch/csrc/segment_sums.cu",
                          replaces="dpvo_tpu/ops/agg_pallas.py:161"),
+    **{f"corr_probe.{p}": dict(source="dpvo_tpu_torch/csrc/corr_raw.cu",
+                               replaces="scripts/dev/corr_variants.py:549")
+       for p in PROBES},
 }
 
 
@@ -137,11 +157,13 @@ def corr_inputs(E, n_frames, n_patches, dev, gen):
     return g_all, kk, w_raw, f1, f2, coords, ff
 
 
-def window_bytes(fmaps, coords, ff):
-    """Bytes of the ring pixels that the 8x8 windows of these coordinates
-    touch (level l at coords / 4**l), each counted once."""
+def window_bytes(fmaps, coords, ff, width=8, aligned=False):
+    """Bytes of the ring pixels that the windows of these coordinates touch
+    (level l at coords / 4**l), each counted once: 8 rows of ``width``
+    pixels from the window origin bx, or with ``aligned`` from the 8-aligned
+    origin min(8 * (bx // 8), Wp - 16) of the TPU's loads."""
     import torch
-    from dpvo_tpu_torch.ops.corr_cuda import PAD, R, D, P2
+    from dpvo_tpu_torch.ops.corr_cuda import PAD, R, D, DW, P2
     E = coords.shape[0]
     nbytes = 0
     for level, fm in enumerate(fmaps):
@@ -151,8 +173,11 @@ def window_bytes(fmaps, coords, ff):
                               + (PAD - R), nan=0.0).clamp(0, Wp - D).long()
         by = torch.nan_to_num(torch.floor(c[:, 1]).reshape(E, P2)
                               + (PAD - R), nan=0.0).clamp(0, Hp - D).long()
+        if aligned:
+            bx = torch.clamp(torch.div(bx, 8, rounding_mode="floor") * 8,
+                             max=Wp - DW)
         mask = torch.zeros(Fn * Hp * Wp, dtype=torch.bool, device=fm.device)
-        off = torch.arange(D, device=fm.device)
+        off = torch.arange(width, device=fm.device)
         for dy in range(D):
             lin = ((ff.long()[:, None, None] * Hp + by[..., None] + dy) * Wp
                    + bx[..., None] + off)
@@ -188,6 +213,28 @@ def raw_work(g_pre, fmaps, coords, ff, out):
     return nbytes, E * len(fmaps) * P2 * D * D * g_pre.shape[-1] * 2
 
 
+# the pixels per window row each probe reads, from the aligned origin or
+# from bx, and its operations per window row and channel (adds for
+# p_convert, multiply-adds x2 for the products)
+PROBE_READS = {"p_load": (1, True, 0), "p_convert": (16, True, 16),
+               "p_roll": (1, False, 0), "p_mult_subl": (8, False, 16),
+               "p_full_dot": (8, False, 16)}
+
+
+def probe_work(g_pre, fmaps, coords, ff, probe, out):
+    """Bytes and operations of one D3 probe call: the window pixels it reads
+    (``PROBE_READS``), the g_pre rows of the products, coords, ring slots
+    and the (16, 2, 9, 8, 128) output, each once."""
+    from dpvo_tpu_torch.ops.corr_cuda import D, P2
+    width, aligned, ops_row = PROBE_READS[probe]
+    E, C = coords.shape[0], g_pre.shape[-1]
+    nbytes = (window_bytes(fmaps, coords, ff, width, aligned)
+              + coords.numel() * 4 + E * 4 + out.numel() * 4)
+    if probe in ("p_mult_subl", "p_full_dot"):
+        nbytes += g_pre.numel() * g_pre.element_size()
+    return nbytes, E * len(fmaps) * P2 * D * ops_row * C
+
+
 def segment_inputs(E, D, n_groups, dev, gen):
     import torch
     ids = torch.sort(torch.randint(0, n_groups, (E,), generator=gen,
@@ -207,6 +254,64 @@ def segment_inputs(E, D, n_groups, dev, gen):
 # (22-frame removal window, 13-frame patch lifetime)
 SHAPES = ((6144, 8, 8 * 96), (14336, 16, 16 * 96), (45312, 13, 23 * 96))
 E_MAIN = SHAPES[0][0]       # the shape of the merge drive's updates
+PROBE_SHAPES = (SHAPES[0][0], SHAPES[2][0])
+
+
+def phase_probes(results, E, g_pre, f1, f2, coords, ff):
+    """Each D3 probe against its plain version at E edges, its time and
+    bound beside K1 raw's (same inputs, measured just before)."""
+    import torch
+    from dpvo_tpu_torch.ops import corr_cuda
+    k1 = results["corr_fused"][E, "raw"]
+    line = [f"K1 raw {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f})"]
+    for probe in PROBES:
+        args = (g_pre, f1, f2, coords, ff, probe)
+        got = corr_cuda.corr_probe(*args)
+        want = corr_cuda.corr_probe_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = (bool(torch.isfinite(got).all()) and scale > 0
+              and err <= TOL_PROBE * scale)
+        ms = time_ms(lambda: corr_cuda.corr_probe(*args), reps=10)
+        plain_ms = time_ms(lambda: corr_cuda.corr_probe_plain(*args),
+                           reps=3, warm=1)
+        nbytes, nops = probe_work(g_pre, (f1, f2), coords, ff, probe, got)
+        b_ms, b_by = bound(nbytes, nops, "bf16")
+        log(f"[kernels] corr_probe {probe} E={E}: max_abs_err={err:.3e} "
+            f"max|plain|={scale:.3e} tol={TOL_PROBE}*max|plain| "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GOP) "
+            f"library_ms=none (no single call) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"corr_probe ({probe}) disagrees with its "
+                             f"plain version at E={E}")
+        results.setdefault(f"corr_probe.{probe}", {})[E] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+        line.append(f"{probe} {ms:.4f} (bound {b_ms:.4f})")
+    log(f"[probe] E={E} ms: " + "; ".join(line))
+
+
+def probe_path(E=E_MAIN):
+    """D3's own path: the probe entry point of
+    scripts/dev/corr_variants_torch.py at E edges, its launch counts zeroed
+    just before and read just after."""
+    from dpvo_tpu_torch.ops import _cuda
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"
+                           / "dev"))
+    import corr_variants_torch
+    _cuda.reset_launches()
+    times = corr_variants_torch.probe(E)
+    launches = {k: v for k, v in _cuda.launches.items()
+                if k.startswith("corr_probe.")}
+    log(f"[probe] corr_variants_torch.probe({E}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; launches {launches}")
+    if sorted(launches) != sorted(f"corr_probe.{p}" for p in PROBES):
+        raise SystemExit(f"the probe path did not launch every probe: "
+                         f"{launches}")
+    return launches
 
 
 def phase_kernels(dev):
@@ -285,6 +390,8 @@ def phase_kernels(dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
             del got, want
+        if E in PROBE_SHAPES:
+            phase_probes(results, E, g_pre, f1, f2, coords, ff)
         del g_all, kk, f1, f2, coords, ff, g_pre
 
         # K3: SoftAgg softmax sums (f32) over the agg_kk patch groups
@@ -358,6 +465,9 @@ SMALL_INTR = np.array([64.0, 64.0, 64.0, 48.0], np.float32)
 # (KEYFRAME_THRESH, translation atol, 1 - quaternion |dot| bound): the
 # envelopes the CPU tests hold the port's engine to against the JAX engine
 AGREE = {"never_merge": (0.0, 5e-3, 1e-4), "always_merge": (1e9, 5e-2, 1e-3)}
+# the lagged keyframing of the small drive (tests/test_torch_async.py's)
+LAGGED = dict(ASYNC_KEYFRAME=True, ASYNC_KEYFRAME_LAG=3,
+              ASYNC_KEYFRAME_BATCH=2)
 
 
 @contextlib.contextmanager
@@ -395,7 +505,7 @@ def small_network(seed=0):
     return p.state_dict(), u.state_dict()
 
 
-def small_drive(dev, thresh, network):
+def small_drive(dev, thresh, network, **overrides):
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
@@ -407,8 +517,9 @@ def small_drive(dev, thresh, network):
         return np.stack([1 + (7 * k + 3 * t) % (fw - 2),
                          1 + (5 * k + 11 * t) % (fh - 2)], -1)
 
-    slam = DPVO(VOConfig(**SMALL, KEYFRAME_THRESH=thresh), network=network,
-                ht=SMALL_HW[0], wd=SMALL_HW[1], device=dev)
+    slam = DPVO(VOConfig(**{**SMALL, "KEYFRAME_THRESH": thresh,
+                            **overrides}),
+                network=network, ht=SMALL_HW[0], wd=SMALL_HW[1], device=dev)
     slam.motion_probe = lambda: 100.0
     slam.test_centroids = centroids
     slam.test_fixed_depth = 0.7
@@ -429,11 +540,16 @@ def phase_agreement(dev):
     match exactly; poses within the envelopes of the CPU parity tests."""
     import torch
     network = small_network()
-    for version, (regime, (thresh, atol_t, atol_q)) in (
-            (v, r) for v in (13, 12, 9) for r in AGREE.items()):
+    runs = [(v, r, {}) for v in (13, 12, 9) for r in AGREE]
+    runs.append((13, "always_merge", LAGGED))
+    for version, regime, lag in runs:
+        thresh, atol_t, atol_q = AGREE[regime]
+        if lag:
+            regime += " lagged"
         with corr_version(version):
-            p_gpu, s_gpu = small_drive(dev, thresh, network)
-            p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network)
+            p_gpu, s_gpu = small_drive(dev, thresh, network, **lag)
+            p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network,
+                                       **lag)
         err_t = float(np.abs(p_gpu[:, :3] - p_cpu[:, :3]).max())
         qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1)) / np.maximum(
             np.linalg.norm(p_gpu[:, 3:], axis=-1)
@@ -571,6 +687,65 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     return out
 
 
+def phase_bench(dev, n_windows=2, n_profile=5):
+    """bench_torch.py's merge and retain regimes at the default
+    configuration (lagged keyframing), through its run_regime, with the
+    windows capped; launch counts zeroed before each regime and read after.
+    The merge drive's trajectory and map are written as TUM and PLY files
+    into a temporary directory and read back.  -> {regime: result}."""
+    import torch
+    import bench_torch
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.utils.plot_utils import (save_ply,
+                                                 save_trajectory_tum_format)
+    expect, absent = PATH_KERNELS[13]
+    out = {}
+    for regime in ("merge", "retain"):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        r = bench_torch.run_regime(regime, device=dev,
+                                   min_windows=n_windows,
+                                   max_windows=n_windows,
+                                   profile_frames=n_profile)
+        r["launches"] = dict(_cuda.launches)
+        ms = [1e3 / w for w in r["windows"]]
+        profile = device_profile(*r["profile"])
+        n = len(r["poses"])
+        log(f"[bench] {regime} 480x640 M=96 default config (lagged "
+            f"keyframing): {n} frames, ms/frame per 40-frame window "
+            + ", ".join(f"{m:.2f}" for m in ms)
+            + f" (fps {r['fps']:.2f}), live edges at the windows' ends "
+            f"{r['edges']} ({r['edges_range'][0]}..{r['edges_range'][1]} "
+            f"over their frames), keyframes {r['keyframes']}, launches "
+            f"{r['launches']}")
+        log(f"[profile] bench {regime} last {n_profile} frames: {profile}")
+        ok = (np.isfinite(r["poses"]).all() and len(r["tstamps"]) == n
+              and all(r["launches"].get(k, 0) > 0 for k in expect)
+              and not any(r["launches"].get(k, 0) for k in absent))
+        if not ok:
+            raise SystemExit(f"bench drive ({regime}) failed: launches "
+                             f"{r['launches']}")
+        out[regime] = r
+    merge = out["merge"]
+    with tempfile.TemporaryDirectory() as tmp:
+        traj, ply = Path(tmp) / "merge.txt", Path(tmp) / "merge.ply"
+        save_trajectory_tum_format(merge["poses"], merge["tstamps"], traj)
+        save_ply(ply, merge["points"], merge["colors"])
+        back = np.loadtxt(traj)
+        header = ply.read_text().split("end_header\n")[0].splitlines()
+        n_pts = int(header[2].split()[-1])
+        finite = int(np.isfinite(merge["points"]).all(-1).sum())
+        ok = (back.shape == (len(merge["poses"]), 8)
+              and np.allclose(back[:, 1:], merge["poses"], atol=1e-6)
+              and n_pts == finite > 0)
+        log(f"[bench] merge exports: TUM {back.shape} read back, PLY "
+            f"{n_pts} points of {len(merge['points'])} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the merge drive's exports do not read back")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -593,21 +768,25 @@ def main():
     log(f"[kernels] corr_single is on no engine path (its callers are "
         f"corr_grouped and the tests): its launches below are phase 2's "
         f"({single_launches})")
+    probe_launches = probe_path()
     phase_agreement(dev)
-    merge = drive_engine(dev, "merge")
+    drive_engine(dev, "merge")
     drive_engine(dev, "retain")
     with corr_version(12):
         raw = drive_engine(dev, "retain")
+    bench = phase_bench(dev)
 
-    launches = {**merge["launches"],
+    launches = {**bench["merge"]["launches"], **probe_launches,
                 "corr_fused": raw["launches"]["corr_fused"],
                 "corr_single": single_launches}
-    # the kernels line holds K1 in the version-12 drive's layout and K5 in
-    # corr_grouped's reference order
-    picks = {"corr_fused": (E_MAIN, "v12"), "corr_single": (E_MAIN, "ref")}
+    # the kernels line holds K2, K3 and K4 at the lagged merge shape of the
+    # default configuration, K1 in the version-12 drive's layout, K5 in
+    # corr_grouped's reference order and the probes at the D3 path's shape
+    picks = {"corr_fused": (E_MAIN, "v12"), "corr_single": (E_MAIN, "ref"),
+             **{f"corr_probe.{p}": E_MAIN for p in PROBES}}
     line = {"kernels": []}
     for name, meta in KERNELS.items():
-        r = kern[name][picks.get(name, E_MAIN)]
+        r = kern[name][picks.get(name, SHAPES[1][0])]
         line["kernels"].append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],

@@ -31,9 +31,9 @@ class VOConfig:
     # keyframing
     KEYFRAME_INDEX: int = 4
     KEYFRAME_THRESH: float = 15.0
-    # lagged keyframe decisions of the JAX engine; the port runs the
-    # reference's synchronous timing (ASYNC_KEYFRAME=False) and raises
-    # NotImplementedError for True (see ROADMAP.md, Queue 1)
+    # lagged keyframe decisions (the JAX engine's, made deterministic: a
+    # batch of BATCH decisions applies once it is LAG frames overdue);
+    # False is the reference's synchronous timing
     ASYNC_KEYFRAME: bool = True
     ASYNC_KEYFRAME_LAG: int = 8
     ASYNC_KEYFRAME_BATCH: int = 4

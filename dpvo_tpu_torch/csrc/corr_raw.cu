@@ -37,6 +37,17 @@
 // Non-finite coordinates are clamped in float before the int conversion, so
 // they read a window inside the padded map (never out of bounds); their
 // fractional part is NaN, and so are their output values.
+//
+// corr_probe_kernel<PROBE> replaces scripts/dev/corr_variants.py:
+// probe_variant (D3): K1's window stage on bf16 rings, stopped after one
+// phase (corr_window.cuh probe_row), one template instance per probe. Like
+// the TPU probe's constant output block, only the last 16 edges (the last
+// TPU tile) are stored, fp32 (16, 2, 9, 8, 128) as (edge, level, pixel,
+// window row, lane); every other row's values feed a store guarded by
+// value == never, with never a NaN passed at run time, so no phase is dead
+// code and almost no output traffic is added. What bounds a probe: the
+// bytes of the window pixels it reads (one pixel column per row for load
+// and shift, 16 for convert, 8 for multiply and dot), as for K1.
 #include "corr_window.cuh"
 
 namespace {
@@ -161,6 +172,91 @@ int launch_in(int in_bf16, int out_bf16, const Args& a,
                  : launch_out<NL, float>(out_bf16, a, stream);
 }
 
+constexpr int PROBE_TILE = 16;    // edges of the TPU probe's output block
+
+struct ProbeArgs {
+  const __nv_bfloat16* g_pre;     // (E, 9, 128)
+  const int* ff;                  // (E,) ring slot of each edge's frame
+  const __nv_bfloat16* fmap1;     // (F, Hp1, Wp1, 128)
+  const __nv_bfloat16* fmap2;     // (F, Hp2, Wp2, 128)
+  const float* coords;            // (E, 2, 3, 3) level-1 coords
+  float* out;                     // (16, 2, 9, 8, 128) fp32
+  float never;                    // a NaN: no value equals it
+  int E, Hp1, Wp1, Hp2, Wp2;
+};
+
+template <int PROBE>
+__global__ void __launch_bounds__(NT) corr_probe_kernel(ProbeArgs a) {
+  __shared__ long long win[EB][2 * P2];   // element offset of origin bx
+  __shared__ int shift[EB][2 * P2];       // bx - x0, x0 the aligned origin
+  const int e0 = blockIdx.x * EB;
+  const int n_here = min(EB, a.E - e0);
+  for (int i = threadIdx.x; i < EB * 2 * P2; i += NT) {
+    const int e = i / (2 * P2);
+    const int lp = i % (2 * P2);
+    const int l = lp / P2;
+    const int p = lp % P2;
+    long long off = 0;
+    int r = 0;
+    if (e < n_here) {
+      const int edge = e0 + e;
+      float cx = a.coords[(size_t)edge * 2 * P2 + p];
+      float cy = a.coords[(size_t)edge * 2 * P2 + P2 + p];
+      if (l == 1) { cx *= 0.25f; cy *= 0.25f; }
+      const int Hp = l == 0 ? a.Hp1 : a.Hp2;
+      const int Wp = l == 0 ? a.Wp1 : a.Wp2;
+      int bx, by;
+      float fx, fy;
+      window_origin(cx, cy, Hp, Wp, bx, by, fx, fy);
+      r = bx - min((bx / 8) * 8, Wp - DW);
+      off = (((long long)a.ff[edge] * Hp + by) * Wp + bx) * C;
+    }
+    win[e][lp] = off;
+    shift[e][lp] = r;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int first_stored = a.E - PROBE_TILE;
+  for (int task = threadIdx.x >> 5; task < n_here * 2 * P2 * D;
+       task += NT / 32) {
+    const int e = task / (2 * P2 * D);
+    const int lp = (task / D) % (2 * P2);
+    const int y = task % D;
+    const int l = lp / P2;
+    const int p = lp % P2;
+    const int edge = e0 + e;
+    const __nv_bfloat16* row = (l == 0 ? a.fmap1 : a.fmap2) + win[e][lp]
+                               + (long long)y * (l == 0 ? a.Wp1 : a.Wp2) * C;
+    float v[8];
+    probe_row<PROBE>(row - (long long)shift[e][lp] * C, row,
+                     a.g_pre + ((size_t)edge * P2 + p) * C, lane, v);
+    if (lane >= 16) continue;
+    if (edge >= first_stored) {
+      float4* o = reinterpret_cast<float4*>(
+          a.out + (((size_t)(edge - first_stored) * 2 * P2 + lp) * D + y) * C
+          + 8 * lane);
+      o[0] = make_float4(v[0], v[1], v[2], v[3]);
+      o[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      bool hit = false;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        hit |= v[i] == a.never;
+        s += v[i];
+      }
+      if (hit) a.out[8 * lane] = s;
+    }
+  }
+}
+
+template <int PROBE>
+int launch_probe(const ProbeArgs& a, cudaStream_t stream) {
+  corr_probe_kernel<PROBE><<<(a.E + EB - 1) / EB, NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,6 +280,32 @@ int dpvo_corr_raw(int levels, int in_bf16, int out_bf16, int layout,
   if (levels == 1 && (layout == RAW || layout == REF))
     return launch_in<1>(in_bf16, out_bf16, a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// D3: probe (a Probe of corr_window.cuh) over E edges, E a positive
+// multiple of 16, on bf16 rings; writes out (16, 2, 9, 8, 128) fp32.
+// Returns the cudaGetLastError() code of the launch, cudaErrorInvalidValue
+// for an unknown probe or a bad E.
+int dpvo_corr_probe(int probe, const void* g_pre, const void* ff,
+                    const void* fmap1, const void* fmap2, const void* coords,
+                    void* out, float never, int E, int Hp1, int Wp1, int Hp2,
+                    int Wp2, void* stream) {
+  const ProbeArgs a{static_cast<const __nv_bfloat16*>(g_pre),
+                    static_cast<const int*>(ff),
+                    static_cast<const __nv_bfloat16*>(fmap1),
+                    static_cast<const __nv_bfloat16*>(fmap2),
+                    static_cast<const float*>(coords),
+                    static_cast<float*>(out), never, E, Hp1, Wp1, Hp2, Wp2};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E < PROBE_TILE || E % PROBE_TILE) return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case P_LOAD: return launch_probe<P_LOAD>(a, st);
+    case P_CONVERT: return launch_probe<P_CONVERT>(a, st);
+    case P_ROLL: return launch_probe<P_ROLL>(a, st);
+    case P_MULT_SUBL: return launch_probe<P_MULT_SUBL>(a, st);
+    case P_FULL_DOT: return launch_probe<P_FULL_DOT>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

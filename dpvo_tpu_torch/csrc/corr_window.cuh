@@ -7,6 +7,10 @@
 // contiguous values). Lane l reads the 16-byte chunks j = l + 32k (k < 4),
 // which are tap (l >> 4) + 2k, channels 8 * (l & 15) .. + 8, and half-warp
 // shuffles reduce the per-channel products. Accumulation is fp32.
+//
+// probe_row is a probe build of the same stage (the TPU kernel's phase
+// probes, scripts/dev/corr_variants.py): it stops the pipeline after one
+// phase (load, convert, shift, multiply, dot) of one window row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +24,7 @@ constexpr int D = 2 * R + 2;      // tap window side (8)
 constexpr int P2 = 9;             // patch pixels (3 x 3)
 constexpr int C = 128;            // feature channels
 constexpr int DB = D - 1;         // blended side (7)
+constexpr int DW = 16;            // the TPU kernels' 8-aligned window width
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -53,6 +58,21 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
   }
 }
 
+// Origin (bx, by) of the 8x8 tap window of one level coordinate (cx, cy)
+// in a zero-padded Hp x Wp map, clamp(floor(c) + PAD - R), and the
+// fractional offsets. Clamped in float first: NaN and huge values land
+// inside the map.
+__device__ __forceinline__ void window_origin(float cx, float cy, int Hp,
+                                              int Wp, int& bx, int& by,
+                                              float& fx, float& fy) {
+  const float bxf = floorf(cx);
+  const float byf = floorf(cy);
+  fx = cx - bxf;
+  fy = cy - byf;
+  bx = (int)fminf(fmaxf(bxf + (float)(PAD - R), 0.f), (float)(Wp - D));
+  by = (int)fminf(fmaxf(byf + (float)(PAD - R), 0.f), (float)(Hp - D));
+}
+
 // Window metadata of a block's EB edges, NL levels and 9 pixels: element
 // offset of each window origin and the fractional x / y. Level 1 samples
 // coords / 4 in the second ring. Edges at or past n_here (block-relative)
@@ -78,17 +98,10 @@ __device__ __forceinline__ void window_meta(
       if (l == 1) { cx *= 0.25f; cy *= 0.25f; }
       const int Hp = l == 0 ? Hp1 : Hp2;
       const int Wp = l == 0 ? Wp1 : Wp2;
-      const float bxf = floorf(cx);
-      const float byf = floorf(cy);
-      fx = cx - bxf;
-      fy = cy - byf;
-      // clamp in float first: NaN and huge values land inside the map
-      const float bxc = fminf(fmaxf(bxf + (float)(PAD - R), 0.f),
-                              (float)(Wp - D));
-      const float byc = fminf(fmaxf(byf + (float)(PAD - R), 0.f),
-                              (float)(Hp - D));
+      int bx, by;
+      window_origin(cx, cy, Hp, Wp, bx, by, fx, fy);
       const long long f = ff[edge];
-      off = ((f * Hp + (long long)byc) * Wp + (long long)bxc) * C;
+      off = ((f * Hp + by) * Wp + bx) * C;
     }
     win[e][lp] = off;
     fxs[e][lp] = fx;
@@ -152,6 +165,85 @@ __device__ __forceinline__ float blend(const float* t, float fx, float fy,
   const float ty1 = (1.f - fy) * t[dy * D + dx + 1]
                     + fy * t[(dy + 1) * D + dx + 1];
   return (1.f - fx) * ty0 + fx * ty1;
+}
+
+// The phase probes, in pipeline order.
+enum Probe { P_LOAD = 0, P_CONVERT = 1, P_ROLL = 2, P_MULT_SUBL = 3,
+             P_FULL_DOT = 4, N_PROBES = 5 };
+
+// One window row of one probe, computed by a whole warp: ``aligned`` points
+// at the row's pixel at the 8-aligned origin x0 = min(8 * (bx / 8), Wp - DW)
+// that the TPU loads from, ``row`` at the true origin bx, ``g`` at the patch
+// pixel's 128 features. Lane l < 16 gets v = the row's outputs 8 * l .. + 8
+// (fp32; 128 per row):
+//   P_LOAD       pixel x0, one 16-byte chunk per lane;
+//   P_CONVERT    the sum over the 16 aligned pixels, in fp32;
+//   P_ROLL       pixel bx: the TPU's roll is only another address here;
+//   P_MULT_SUBL  the sum over the window's 8 pixels of pixel x g;
+//   P_FULL_DOT   the 8 taps g . pixel (no blend), then zeros.
+// Columns split between the half-warps (pixel h + 2k in half h), which one
+// shuffle adds; the dot reduces channels with half-warp shuffles as
+// window_taps does.
+template <int PROBE, typename T>
+__device__ __forceinline__ void probe_row(const T* aligned, const T* row,
+                                          const T* g, int lane, float v[8]) {
+  const int h = lane >> 4;
+  const int cb = 8 * (lane & 15);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = 0.f;
+  if constexpr (PROBE == P_LOAD || PROBE == P_ROLL) {
+    if (h == 0) load8((PROBE == P_LOAD ? aligned : row) + cb, v);
+  } else if constexpr (PROBE == P_CONVERT) {
+#pragma unroll
+    for (int k = 0; k < DW / 2; ++k) {
+      float x[8];
+      load8(aligned + (h + 2 * k) * C + cb, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += x[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 16);
+  } else if constexpr (PROBE == P_MULT_SUBL) {
+    float gv[8];
+    load8(g + cb, gv);
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) {
+      float x[8];
+      load8(row + (h + 2 * k) * C + cb, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = fmaf(x[i], gv[i], v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 16);
+  } else {                                  // P_FULL_DOT
+    float gv[8];
+    load8(g + cb, gv);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float x[8];
+      load8(row + 8 * (lane + 32 * k), x);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[k] = fmaf(gv[c], x[c], acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
+    }
+    // half h holds taps h + 2k; lane 0 gathers all 8
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float odd = __shfl_xor_sync(0xffffffffu, acc[k], 16);
+      if (lane == 0) {
+        v[2 * k] = acc[k];
+        v[2 * k + 1] = odd;
+      }
+    }
+  }
 }
 
 }  // namespace corr

@@ -8,13 +8,27 @@ Counterpart of ``dpvo_tpu/engine/dpvo.py``, same public API::
     poses, tstamps = slam.terminate()
 
 The host owns the edge bookkeeping (numpy); the device programs of
-``engine.kernels`` update fixed-capacity device tensors in place.  Keyframe
-decisions are synchronous (the reference timing, ``ASYNC_KEYFRAME=False``):
-each frame reads its motion magnitude back before deciding.
+``engine.kernels`` update fixed-capacity device tensors in place.
+
+Keyframe decisions come in two timings:
+
+- ``ASYNC_KEYFRAME=False`` (the reference's): each frame computes its
+  motion magnitude after its update and reads it back before deciding;
+- ``ASYNC_KEYFRAME=True`` (the default, the JAX engine's lag, made
+  deterministic): every update computes the magnitude of the current
+  candidate on the device and queues it; the queue is stacked into one
+  vector every ``b_eff = max(1, min(BATCH, LAG))`` decisions, whose
+  device-to-host copy starts at once, and a batch applies, oldest first, at
+  the first ``keyframe()`` where ``kf_clock - batch_clock + b_eff - 1 >=
+  ASYNC_KEYFRAME_LAG``, never earlier.  The copy has landed long before,
+  and the schedule never depends on whether it has, so a drive gives the
+  same structure on the CPU and on the card.  ``terminate()`` drops what is
+  still pending, as the JAX engine does.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -24,6 +38,7 @@ from ..device import resolve_device
 from ..models.update import Update
 from ..models.vonet import Patchifier, normalize_images
 from ..ops import lie
+from ..utils.checkpoint import load_network
 from . import kernels
 from .state import allocate, allocate_host
 
@@ -32,11 +47,6 @@ class DPVO:
     def __init__(self, cfg: VOConfig, network=None, ht: int = 480,
                  wd: int = 640, viz: bool = False, seed: int = 0,
                  device="cuda"):
-        if cfg.ASYNC_KEYFRAME:
-            raise NotImplementedError(
-                "ASYNC_KEYFRAME=True is not ported yet (ROADMAP.md Queue 1: "
-                "the deterministic ASYNC_KEYFRAME lag); use "
-                "ASYNC_KEYFRAME=False")
         if cfg.LOOP_CLOSURE or cfg.CLASSIC_LOOP_CLOSURE or viz:
             raise NotImplementedError(
                 "loop closure and the viewer are not ported yet (ROADMAP.md "
@@ -75,6 +85,14 @@ class DPVO:
             max((cfg.REMOVAL_WINDOW + 4) * self.M, 256)))
 
         self._pending_perm = None
+        # lagged keyframe decisions (ASYNC_KEYFRAME): device magnitudes
+        # with their candidate timestamps, then flushed batches
+        # (host vector, copy event, timestamps, kf_clock at the flush)
+        self._mag_pending: list = []
+        self._kf_queue: list = []
+        self._kf_clock = 0
+        self._b_eff = max(1, min(cfg.ASYNC_KEYFRAME_BATCH,
+                                 cfg.ASYNC_KEYFRAME_LAG))
         # test seams for cross-engine parity runs: scripted centroids
         # (counter -> (M, 2) float [x, y]) and a constant pre-init depth
         self.test_centroids = None
@@ -84,8 +102,10 @@ class DPVO:
 
     def load_weights(self, network, seed=0):
         """network: (patchifier state dict, update state dict), e.g. from
-        ``utils.checkpoint.params_from_jax``, or None for seeded random
-        weights."""
+        ``utils.checkpoint.params_from_jax``; a path to the JAX package's
+        ``.npz`` checkpoint; or None for seeded random weights."""
+        if isinstance(network, (str, os.PathLike)):
+            network = load_network(network)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             patchifier = Patchifier(self.P)
@@ -114,6 +134,19 @@ class DPVO:
     @m.setter
     def m(self, v):
         self.hs.m = v
+
+    @property
+    def ix(self):
+        """Patch index -> source frame (dense arange mapping)."""
+        return np.arange(self.N * self.M, dtype=np.int32) // self.M
+
+    @property
+    def points(self):
+        """World points (N*M, 3) at every patch slot's centre (the first
+        ``m`` are live)."""
+        ix = torch.as_tensor(self.ix, dtype=torch.long, device=self.device)
+        return kernels.point_cloud(self.ds.poses, self.ds.patches,
+                                   self.ds.intrinsics, ix)
 
     def _dev(self, a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
@@ -186,13 +219,22 @@ class DPVO:
     # --- core steps --------------------------------------------------------
 
     def update(self):
+        if self.hs.e_num == 0:       # no keyframe pair yet: nothing to solve
+            return
         self._flush_edge_permute()
         t0 = self.n - self.cfg.OPTIMIZATION_WINDOW \
             if self.is_initialized else 1
+        cand = self._candidate() if self.cfg.ASYNC_KEYFRAME else None
         kernels.update_step(
             self.ds, self.update_mod, self.hs.e_num, max(t0, 1), self.n,
             M=self.M, pmem=self.pmem, mem=self.mem, n_cap=self.n_cap,
             k_cap=self.k_cap, iterations=2)
+        if cand is not None:
+            # the candidate's magnitude on the post-BA poses, queued
+            a, b, tcand = cand
+            self._mag_pending.append((kernels.flowmag_two(
+                self.ds.poses, self.ds.patches, self.ds.intrinsics, a, b),
+                tcand))
 
     def _motionmag_edges(self, i, j):
         hs = self.hs
@@ -200,6 +242,46 @@ class DPVO:
         k = (hs.ii[:e] == i) & (hs.jj[:e] == j)
         return tuple(self._dev(a[:e][k].astype(np.int64))
                      for a in (hs.ii, hs.jj, hs.kk))
+
+    def _candidate(self):
+        """The keyframe candidate's motion-magnitude edges, both directions
+        (ii, jj, kk each), and its timestamp; None while it has no edges."""
+        cfg = self.cfg
+        i = self.n - cfg.KEYFRAME_INDEX - 1
+        j = self.n - cfg.KEYFRAME_INDEX + 1
+        a = self._motionmag_edges(i, j)
+        b = self._motionmag_edges(j, i)
+        if not (a[0].numel() or b[0].numel()):
+            return None
+        return a, b, int(self.hs.tstamps[self.n - cfg.KEYFRAME_INDEX])
+
+    def _flush_mags(self):
+        """Stack the pending magnitudes into one vector and start its copy
+        to the host; the batch is stamped with the keyframe clock."""
+        if not self._mag_pending:
+            return
+        mags, tcands = zip(*self._mag_pending)
+        self._mag_pending.clear()
+        vec = torch.stack(mags)
+        event = None
+        if vec.device.type == "cuda":
+            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            vec = host
+        self._kf_queue.append((vec, event, tcands, self._kf_clock))
+
+    def _apply_overdue(self):
+        """Apply, oldest first, every flushed batch that is overdue."""
+        q = self._kf_queue
+        while q and (self._kf_clock - q[0][3] + self._b_eff - 1
+                     >= self.cfg.ASYNC_KEYFRAME_LAG):
+            vec, event, tcands, _ = q.pop(0)
+            if event is not None:
+                event.synchronize()
+            for m, tcand in zip(vec.tolist(), tcands):
+                self._keyframe_apply(m, tcand)
 
     def _keyframe_apply(self, m, tcand):
         """Merge the candidate frame (found by timestamp) if motion is
@@ -236,15 +318,18 @@ class DPVO:
 
     def keyframe(self):
         cfg, hs, ds = self.cfg, self.hs, self.ds
-        i = self.n - cfg.KEYFRAME_INDEX - 1
-        j = self.n - cfg.KEYFRAME_INDEX + 1
-        a = self._motionmag_edges(i, j)
-        b = self._motionmag_edges(j, i)
-        if a[0].numel() or b[0].numel():
-            tcand = int(hs.tstamps[self.n - cfg.KEYFRAME_INDEX])
-            mag = kernels.flowmag_two(ds.poses, ds.patches, ds.intrinsics,
-                                      a, b)
-            self._keyframe_apply(float(mag), tcand)
+        if cfg.ASYNC_KEYFRAME:
+            self._kf_clock += 1
+            if len(self._mag_pending) >= self._b_eff:
+                self._flush_mags()
+            self._apply_overdue()
+        else:
+            cand = self._candidate()
+            if cand is not None:
+                a, b, tcand = cand
+                mag = kernels.flowmag_two(ds.poses, ds.patches,
+                                          ds.intrinsics, a, b)
+                self._keyframe_apply(float(mag), tcand)
 
         # retire edges outside the removal window
         e = hs.e_num
@@ -317,6 +402,11 @@ class DPVO:
             for _ in range(12):
                 self.update()
         elif self.is_initialized:
+            # a full batch is flushed before the update, so its copy is
+            # queued ahead of the update's work
+            if (cfg.ASYNC_KEYFRAME
+                    and len(self._mag_pending) >= self._b_eff):
+                self._flush_mags()
             self.update()
             self.keyframe()
 
@@ -334,6 +424,9 @@ class DPVO:
         """-> (poses (T, 7) xyz+quat numpy, tstamps (T,))."""
         for _ in range(12):
             self.update()
+        # lagged decisions still pending never apply
+        self._mag_pending.clear()
+        self._kf_queue.clear()
         poses_h = self.ds.poses.cpu()
         self.traj = {int(self.hs.tstamps[i]): poses_h[i]
                      for i in range(self.n)}

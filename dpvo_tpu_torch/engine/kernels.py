@@ -16,7 +16,8 @@ every row it sees is live.
 - ``flowmag_pair`` / ``flowmag_two`` — keyframe motion magnitude;
 - ``compact_frames``, ``append_edges``, ``permute_edges``,
   ``shift_edge_indices``, ``relative_pose`` — keyframe merge and edge
-  table bookkeeping.
+  table bookkeeping;
+- ``point_cloud`` — world points at the patch centres, for the exports.
 """
 from __future__ import annotations
 
@@ -280,3 +281,12 @@ def shift_edge_indices(ds: DeviceState, k, M):
 def relative_pose(poses, k):
     """dP = poses[k] * poses[k-1]^-1."""
     return lie.se3_mul(poses[k], lie.se3_inv(poses[max(k - 1, 0)]))
+
+
+def point_cloud(poses, patches, intrinsics, ix):
+    """World points (K, 3) at the patch centres of patches (K, 3, P, P),
+    ix (K,) their frames; for the map exports."""
+    pts = pops.point_cloud(poses, patches, intrinsics, ix)
+    c = patches.shape[-1] // 2
+    ctr = pts[:, c, c]
+    return ctr[:, :3] / ctr[:, 3:].clamp(min=1e-8)

@@ -38,11 +38,12 @@ build_seconds: float | None = None   # wall time of this process's build
 _lib = None
 _lock = threading.Lock()
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dpvo_corr_enc_f32": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
     "dpvo_corr_enc_bf16": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
     "dpvo_corr_raw": [_I] * 4 + [_VP] * 6 + [_I] * 6 + [_VP],
+    "dpvo_corr_probe": [_I] + [_VP] * 6 + [_F] + [_I] * 5 + [_VP],
     "dpvo_segment_softmax_sums": [_VP] * 5 + [_I] * 3 + [_VP],
     "dpvo_segment_sums": [_VP] * 3 + [_I] * 3 + [_VP],
 }

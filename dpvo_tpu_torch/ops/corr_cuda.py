@@ -8,7 +8,9 @@ Counterpart of ``dpvo_tpu/ops/corr_pallas.py``:
 - ``corr_fused`` (K1, ``csrc/corr_raw.cu``): two-level correlation in the
   raw, v10 or v12 feature layout, ``corr_pallas_fused``;
 - ``corr_single`` (K5, the same source) and ``corr_grouped``: one level, raw
-  or the reference's (E, 7, 7, 3, 3) order, ``corr_pallas``.
+  or the reference's (E, 7, 7, 3, 3) order, ``corr_pallas``;
+- ``corr_probe`` (D3, the same source): K1's window stage stopped after one
+  phase, ``scripts/dev/corr_variants.py:probe_variant``.
 
 Feature rings are stored zero-padded (``pad_fmap``), so every 8x8 tap
 window is an in-bounds read and out-of-image taps read zeros.  The kernels
@@ -50,6 +52,9 @@ FUSED_VERSION = int(os.environ.get("DPVO_CORR_VERSION", "13"))
 
 # output layouts of csrc/corr_raw.cu (its Layout enum)
 _LAYOUTS = {"raw": 0, "v10": 1, "v12": 2, "ref": 3}
+# D3's phase probes, in pipeline order (csrc/corr_window.cuh's Probe enum)
+PROBES = ("p_load", "p_convert", "p_roll", "p_mult_subl", "p_full_dot")
+PROBE_TILE = 16    # edges of the probe's output block (the TPU's last tile)
 
 
 def layout_for_version(version):
@@ -125,24 +130,38 @@ def raw_enc_kernel(kernel, in_dim=2 * RAW_DIM):
     return kernel[torch.as_tensor(rows, device=kernel.device)].contiguous()
 
 
+def _window_origin(c, Hp, Wp):
+    """c (E, 2, 3, 3) level coords -> the 8x8 windows' origins bx, by
+    (E, P2) int64 in the padded map, clamped in float (non-finite coords
+    stay in bounds), and the fractional offsets fx, fy (E, P2)."""
+    E = c.shape[0]
+    cx = c[:, 0].reshape(E, P2)
+    cy = c[:, 1].reshape(E, P2)
+    bx_f, by_f = torch.floor(cx), torch.floor(cy)
+    bx = torch.nan_to_num(bx_f + (PAD - R), nan=0.0).clamp(0, Wp - D).long()
+    by = torch.nan_to_num(by_f + (PAD - R), nan=0.0).clamp(0, Hp - D).long()
+    return bx, by, cx - bx_f, cy - by_f
+
+
+def _window_pixels(fmap, ff, bx, by, width):
+    """The ``width`` pixels from column bx of the 8 window rows from by:
+    fmap (F, Hp, Wp, C), ff (E,), bx, by (E, P2) -> (E, P2, D, width, C)."""
+    E = bx.shape[0]
+    _, Hp, Wp, Cc = fmap.shape
+    rows = torch.arange(D, device=fmap.device)
+    cols = torch.arange(width, device=fmap.device)
+    lin = ((ff.long()[:, None, None, None] * Hp
+            + by[..., None, None] + rows[:, None]) * Wp
+           + bx[..., None, None] + cols)                # (E, P2, D, width)
+    return fmap.reshape(-1, Cc)[lin.reshape(-1)].reshape(E, P2, D, width, Cc)
+
+
 def _window_taps(g_rows, fmap, c, ff):
     """Taps of every (edge, pixel) 8x8 window: g_rows (E, P2, C), fmap
     (F, Hp, Wp, C), c (E, 2, 3, 3) level coords, ff (E,) ring slots ->
     (taps (E, P2, D, D) fp32, fx, fy (E, P2))."""
-    E = c.shape[0]
-    _, Hp, Wp, Cc = fmap.shape
-    cx = c[:, 0].reshape(E, P2)
-    cy = c[:, 1].reshape(E, P2)
-    bx_f, by_f = torch.floor(cx), torch.floor(cy)
-    fx, fy = cx - bx_f, cy - by_f
-    # window origin clamped in float (non-finite coords stay in bounds)
-    bx = torch.nan_to_num(bx_f + (PAD - R), nan=0.0).clamp(0, Wp - D).long()
-    by = torch.nan_to_num(by_f + (PAD - R), nan=0.0).clamp(0, Hp - D).long()
-    off = torch.arange(D, device=fmap.device)
-    lin = ((ff.long()[:, None, None, None] * Hp
-            + by[..., None, None] + off[:, None]) * Wp
-           + bx[..., None, None] + off)                    # (E, P2, D, D)
-    win = fmap.reshape(-1, Cc)[lin.reshape(-1)].reshape(E, P2, D, D, Cc)
+    bx, by, fx, fy = _window_origin(c, *fmap.shape[1:3])
+    win = _window_pixels(fmap, ff, bx, by, D)
     taps = torch.einsum("epc,epyxc->epyx", g_rows.float(), win.float())
     return taps, fx, fy
 
@@ -354,3 +373,88 @@ def corr_grouped(gmap, fmap_padded, coords, kidx, ff_rows):
     E = coords.shape[0]
     g_pre = gmap[kidx.long()].reshape(E, P2, gmap.shape[-1])
     return corr_single(g_pre, fmap_padded, coords, ff_rows)
+
+
+def _probe_edges(E):
+    if E < PROBE_TILE or E % PROBE_TILE:
+        raise ValueError(f"corr_probe needs a positive multiple of "
+                         f"{PROBE_TILE} edges, got {E}")
+
+
+def corr_probe_plain(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows,
+                     probe):
+    """Plain PyTorch version of ``corr_probe``: the last 16 edges' values,
+    in fp32, of ``probe`` at both levels."""
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}; one of {PROBES}")
+    E = coords.shape[0]
+    _probe_edges(E)
+    s = E - PROBE_TILE
+    g = g_pre[s:].float()
+    outs = []
+    for fmap, scale in ((fmap1_padded, 1.0), (fmap2_padded, 0.25)):
+        Hp, Wp = fmap.shape[1:3]
+        bx, by, _, _ = _window_origin(coords[s:].float() * scale, Hp, Wp)
+        if probe in ("p_load", "p_convert"):      # the 8-aligned origin
+            x0 = torch.clamp(torch.div(bx, 8, rounding_mode="floor") * 8,
+                             max=Wp - DW)
+            win = _window_pixels(fmap, ff_rows[s:], x0, by,
+                                 DW if probe == "p_convert" else 1).float()
+        else:
+            win = _window_pixels(fmap, ff_rows[s:], bx, by,
+                                 1 if probe == "p_roll" else D).float()
+        if probe == "p_convert":
+            v = win.sum(3)
+        elif probe == "p_mult_subl":
+            v = (win * g[:, :, None, None, :]).sum(3)
+        elif probe == "p_full_dot":
+            taps = torch.einsum("epc,epyxc->epyx", g, win)
+            v = F.pad(taps, (0, C - D))
+        else:
+            v = win[:, :, :, 0]
+        outs.append(v)                                  # (16, P2, D, C)
+    return torch.stack(outs, 1).contiguous()
+
+
+def corr_probe(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows, probe):
+    """D3: one phase probe of the two-level correlation's window stage.
+
+    g_pre, fmap1_padded, fmap2_padded  bf16, as for ``corr_fused``
+    coords (E, 2, 3, 3) fp32, ff_rows (E,) int32; E a multiple of 16
+    probe  one of ``PROBES``:
+           p_load      pixel x0 of each window row (x0 the 8-aligned origin
+                       min(8 * (bx // 8), Wp - 16) the TPU loads from);
+           p_convert   the sum over the 16 pixels from x0, fp32;
+           p_roll      pixel bx (the true window's first column);
+           p_mult_subl the sum over the window's 8 pixels of pixel * g;
+           p_full_dot  the 8 taps g . pixel (no blend), zero-padded to 128
+    -> (16, 2, P2, 8, 128) fp32: the last 16 edges' (level, pixel, window
+    row, lane) values, as the TPU probe's constant output block holds them.
+    """
+    if coords.device.type == "cpu":
+        return corr_probe_plain(g_pre, fmap1_padded, fmap2_padded, coords,
+                                ff_rows, probe)
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}; one of {PROBES}")
+    E = coords.shape[0]
+    _probe_edges(E)
+    bf = torch.bfloat16
+    _cuda.require(g_pre, "g_pre", bf, (E, P2, C))
+    Fn = fmap1_padded.shape[0]
+    for i, fm in enumerate((fmap1_padded, fmap2_padded), 1):
+        _cuda.require(fm, f"fmap{i}_padded", bf, (Fn, None, None, C))
+        if fm.shape[1] < D or fm.shape[2] < DW:
+            raise ValueError("padded feature maps must be at least 8 rows "
+                             "by 16 columns")
+    _cuda.require(coords, "coords", torch.float32, (E, 2, 3, 3))
+    _cuda.require(ff_rows, "ff_rows", torch.int32, (E,))
+    out = torch.empty((PROBE_TILE, 2, P2, D, C), dtype=torch.float32,
+                      device=coords.device)
+    code = _cuda.lib().dpvo_corr_probe(
+        PROBES.index(probe), g_pre.data_ptr(), ff_rows.data_ptr(),
+        fmap1_padded.data_ptr(), fmap2_padded.data_ptr(), coords.data_ptr(),
+        out.data_ptr(), float("nan"), E, *fmap1_padded.shape[1:3],
+        *fmap2_padded.shape[1:3], _cuda.stream_ptr(out.device))
+    _cuda.check(code, f"corr_probe ({probe})")
+    _cuda.launches[f"corr_probe.{probe}"] += 1
+    return out

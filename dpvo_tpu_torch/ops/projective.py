@@ -64,6 +64,16 @@ def transform(poses, patches, intrinsics, ii, jj, kk, depth=False,
     return x1
 
 
+def point_cloud(poses, patches, intrinsics, ix):
+    """Lift patches to world-frame homogeneous points: patches (K, 3, P,
+    P), ix (K,) source frame of each -> (K, P, P, 4)."""
+    poses, patches, intrinsics = (poses.float(), patches.float(),
+                                  intrinsics.float())
+    X0 = iproj(patches, intrinsics[ix])
+    Ginv = lie.se3_inv(poses[ix])
+    return lie.se3_act4(Ginv[:, None, None], X0)
+
+
 def flow_mag(poses, patches, intrinsics, ii, jj, kk, beta=0.3):
     """Blend of full and translation-only flow magnitude ->
     (flow (E, P, P), valid (E, P, P) bool)."""

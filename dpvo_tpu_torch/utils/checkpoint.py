@@ -9,6 +9,10 @@ packages can run the same network:
 - LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``.
 
 Module paths match because the port's submodules carry the flax names.
+
+``load_network`` reads the JAX package's native checkpoint, an ``.npz`` of
+flattened ``patchify/...`` and ``update/...`` keys
+(``dpvo_tpu/utils/checkpoint.py`` ``save_network``), with numpy alone.
 """
 from __future__ import annotations
 
@@ -52,3 +56,24 @@ def params_from_jax(p_params, u_params):
     """(Patchifier state dict, Update state dict) from the JAX package's
     (params_patchify, params_update) flax trees."""
     return flax_to_state_dict(p_params), flax_to_state_dict(u_params)
+
+
+def load_network(path):
+    """(Patchifier state dict, Update state dict) from a checkpoint file:
+    the JAX package's ``.npz``, its flattened keys split at each ``/`` into
+    flax trees.  The reference's ``.pth`` is not read yet (ROADMAP.md Queue
+    1 item 14) and raises."""
+    if str(path).endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{path}: .pth checkpoints are not read by the port yet "
+            "(ROADMAP.md Queue 1 item 14); convert to the .npz format")
+    trees = {"patchify": {}, "update": {}}
+    with np.load(path) as data:
+        for key in data.files:
+            prefix, rest = key.split("/", 1)
+            *inner, leaf = rest.split("/")
+            node = trees[prefix]
+            for k in inner:
+                node = node.setdefault(k, {})
+            node[leaf] = data[key]
+    return params_from_jax(trees["patchify"], trees["update"])

@@ -11,7 +11,11 @@ segment sums rtol 2e-5 / atol 1e-5, as the CPU tests hold the plain
 versions to the Pallas kernels.  The raw-feature kernels (K1 ``corr_fused``
 in the raw, v10 and v12 layouts, K5 ``corr_single`` raw and in the
 reference order) are held to their plain versions the same way, dead lanes
-and rows past ``n_live_rows`` included.
+and rows past ``n_live_rows`` included.  The D3 phase probes
+(``corr_probe``) are held to theirs at 1e-5 of the largest output (fp32 sums
+of exact bf16 products), and the engine with lagged keyframe decisions on
+the card to the same engine on the CPU (structure exact, translation 5e-2,
+quaternion dot > 1-1e-3, the envelopes of the CPU parity tests).
 """
 import numpy as np
 import pytest
@@ -168,3 +172,53 @@ def test_segment_kernels_vs_plain(dev, E, D, n_groups, g_cap):
     want = agg_cuda.segment_sums_plain(val, gid, g_cap)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("probe", corr_cuda.PROBES)
+def test_corr_probe_kernel_vs_plain(dev, probe):
+    g_pre, f1, f2, coords, ff = _raw_inputs(dev, BF16, E=208)
+    key = f"corr_probe.{probe}"
+    before = _cuda.launches[key]
+    got = corr_cuda.corr_probe(g_pre, f1, f2, coords, ff, probe)
+    want = corr_cuda.corr_probe_plain(g_pre, f1, f2, coords, ff, probe)
+    torch.cuda.synchronize()
+    assert _cuda.launches[key] == before + 1
+    assert got.shape == want.shape == (16, 2, 9, 8, 128)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_lagged_engine_card_vs_cpu(dev):
+    """ASYNC_KEYFRAME=True (lag 3, batch 2) on 16 small always-merge frames:
+    the card engine against the CPU engine, same seeded weights."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=False, EDGE_CAPACITY=512, BA_WINDOW_CAP=8,
+                   KEYFRAME_THRESH=1e9, ASYNC_KEYFRAME=True,
+                   ASYNC_KEYFRAME_LAG=3, ASYNC_KEYFRAME_BATCH=2)
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    intr = np.array([64.0, 64.0, 64.0, 48.0])
+
+    def run(device):
+        slam = DPVO(cfg, ht=96, wd=128, device=device, seed=2)
+        slam.motion_probe = lambda: 100.0
+        k = np.arange(8)
+        slam.test_centroids = lambda t: np.stack(
+            [1 + (7 * k + 3 * t) % 30, 1 + (5 * k + 11 * t) % 22], -1)
+        slam.test_fixed_depth = 0.7
+        for t in range(16):
+            slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+                 intr)
+        state = (slam.n, slam.hs.e_num, slam.hs.tstamps[:slam.n].tolist(),
+                 sorted(slam.hs.delta))
+        return slam.terminate()[0], state
+
+    p_gpu, s_gpu = run(dev)
+    p_cpu, s_cpu = run("cpu")
+    assert s_gpu == s_cpu and s_gpu[0] < 16
+    np.testing.assert_allclose(p_gpu[:, :3], p_cpu[:, :3], atol=5e-2)
+    qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1))
+    assert np.all(qd > 1 - 1e-3)

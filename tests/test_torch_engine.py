@@ -166,10 +166,14 @@ def test_config_matches_jax(source):
 
 
 def test_engine_entry_point_rules():
-    """Synchronous keyframing only; the GPU unless the CPU is asked for."""
-    with pytest.raises(NotImplementedError, match="ASYNC_KEYFRAME"):
-        DPVO(VOConfig(**{**TINY, "ASYNC_KEYFRAME": True}), ht=HT, wd=WD,
-             device="cpu")
+    """The default configuration (lagged keyframing) constructs; the GPU
+    unless the CPU is asked for."""
+    assert VOConfig().ASYNC_KEYFRAME
+    slam = DPVO(VOConfig(**{**TINY, "ASYNC_KEYFRAME": True}), ht=HT, wd=WD,
+                device="cpu")
+    assert slam._b_eff == min(VOConfig().ASYNC_KEYFRAME_BATCH,
+                              VOConfig().ASYNC_KEYFRAME_LAG)
+    assert not slam._mag_pending and not slam._kf_queue
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DPVO(VOConfig(**TINY), ht=HT, wd=WD)

@@ -1,4 +1,6 @@
-"""The port stands alone: ``dpvo_tpu_torch`` and ``chip_smoke.py`` import
+"""The port stands alone: ``dpvo_tpu_torch``, its entry points
+(``bench_torch.py``, ``demo_torch.py``,
+``scripts/dev/corr_variants_torch.py``) and ``chip_smoke.py`` import
 nothing of JAX, flax or the JAX package, and the smoke script refuses to
 run without a CUDA card or outside the repository."""
 import ast
@@ -14,7 +16,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpvo_tpu")
 PORT_FILES = sorted((ROOT / "dpvo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "demo_torch.py",
+    ROOT / "scripts" / "dev" / "corr_variants_torch.py"]
 
 
 def _imported_modules(path):
@@ -35,6 +38,7 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "dpvo_tpu_torch/engine/dpvo.py" in names
     assert "dpvo_tpu_torch/ops/corr_cuda.py" in names
+    assert all(p.exists() for p in PORT_FILES)
     assert len(names) >= 20
 
 

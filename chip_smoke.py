@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero, nothing is caught and passed over):
 
-1. machine: the card's name and power limit, and the kernel build time;
+1. machine: the card's name and power limit, the kernel build time, and
+   the tensor-core (HMMA) instructions of each correlation kernel from
+   ``cuobjdump -sass`` where the toolkit has it;
 2. kernels: every CUDA kernel against its plain PyTorch version on the
    card, at main-path shapes (480x640 frames, M=96, 36-frame rings,
    k_cap=4096) for the synchronous merge (6144 live edges), the lagged
@@ -13,8 +15,13 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    tolerance, times and bound: K2 corr_enc, K1 corr_fused (bf16, raw, v10
    and v12 layouts), K5 corr_single (level-1 ring, fp32 out, raw and
    reference order), K3/K4 the segment sums, and at 6144 and 45312 the
-   five D3 probes (corr_probe, fp32 out of bf16 rings) beside K1 raw; then
-   the D3 path itself, ``scripts/dev/corr_variants_torch.py``'s probe
+   five D3 probes (corr_probe, fp32 out of bf16 rings) beside K1 raw; at
+   each shape the share of (edge, level) tasks whose 9 windows fit one box
+   (``corr_cuda.window_boxes``) and, beside K2, K1 raw followed by the
+   cuBLAS (E, 882) x (882, 384) product (``unfused_ms``, a yardstick the
+   port never calls); then K2 and K1 (raw, v12) at 6144 edges with every
+   other patch spread 6x beyond one box, so the per-window path runs;
+   then the D3 path itself, ``scripts/dev/corr_variants_torch.py``'s probe
    entry point at 6144 edges;
 3. agreement: the fp32 engine with the kernels on the card against the
    same engine with the plain versions on the CPU, on 16 small frames
@@ -22,7 +29,9 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    never-merge and always-merge regimes, at DPVO_CORR_VERSION 13 (K2), 12
    and 9 (K1 in the v12 and raw layouts), synchronous keyframing; and the
    always-merge drive with lagged keyframing (ASYNC_KEYFRAME_LAG=3,
-   BATCH=2);
+   BATCH=2); then the bf16 engine (MIXED_PRECISION) on the card with the
+   kernels against the same with corr_enc / corr_fused swapped for their
+   plain versions, both regimes, versions 13 and 12;
 4. engine, synchronous keyframing: the main path at full width — 480x640,
    M=96, the default config with MIXED_PRECISION (bf16) but
    ASYNC_KEYFRAME=False, seeded random weights, motion_probe forced — in
@@ -30,18 +39,22 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    regime (KEYFRAME_THRESH=0), then the retain regime at
    DPVO_CORR_VERSION 12 (the raw-feature path), with per-frame times, live
    edges, each kernel's launch count (every kernel of the drive's path >
-   0, the other correlation kernel 0) and finite poses;
+   0, the other correlation kernel 0), the box fit share at the last
+   update and finite poses;
 5. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
    default configuration (lagged keyframing), 30 warm frames and two
    40-frame windows each, then 5 profiled frames: ms/frame per window,
-   live edges, the device idle share, launch counts; the merge drive's TUM
-   trajectory and PLY map are written to a temporary directory and read
-   back;
+   live edges, the device idle share, launch counts, the box fit share at
+   the last update; the merge drive's TUM trajectory and PLY map are
+   written to a temporary directory and read back;
 6. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, bench) runs
+those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -49,6 +62,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -59,6 +75,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor bf16 / fp32 FMA
+
+KERNEL_WINDOWS = 5   # timed runs per kernel and library call (median)
 
 TOL_K2 = 1e-2     # max|kernel - plain| / max|plain|: one bf16 step
 TOL_F32 = 1e-4    # max|kernel - plain| of fp32 correlation: summation order
@@ -97,20 +115,53 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps, warm=2):
-    """Mean device ms per call over ``reps`` calls (CUDA events)."""
+def hmma_counts(lib_path):
+    """Tensor-core (HMMA) instructions of each correlation kernel in the
+    built library, from ``cuobjdump -sass``: {kernel: count}, or None
+    where the toolkit has no cuobjdump."""
+    tools = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+    exe = shutil.which("cuobjdump") or str(tools / "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for text in sass.splitlines():
+        m = re.search(r"Function : (\S+)", text)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in text:
+            counts[fn] += 1
+    counts = {k: v for k, v in counts.items() if "corr" in k}
+    filt = shutil.which("cu++filt") or str(tools / "cu++filt")
+    if os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(counts),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def time_ms(fn, reps, warm=2, windows=1):
+    """Device ms per call (CUDA events): the median over ``windows`` runs
+    of ``reps`` calls each, so one disturbed run does not set the number."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    runs = []
+    for _ in range(windows):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        runs.append(t0.elapsed_time(t1) / reps)
+    return sorted(runs)[len(runs) // 2]
 
 
 def bound(nbytes, nops, kind):
@@ -122,12 +173,13 @@ def bound(nbytes, nops, kind):
 
 # --- phase 2: kernels against their plain versions ---------------------------
 
-def corr_inputs(E, n_frames, n_patches, dev, gen):
+def corr_inputs(E, n_frames, n_patches, dev, gen, spread=False):
     """Main-path-shaped K2 inputs: bf16 rings of 36 frames at 120x160 /
     30x40 (480x640 / 4) and a gmap ring of 36*96 patches, of which the
     edges read ``n_frames`` target frames and ``n_patches`` patches;
-    coords spread like reprojected 3x3 patches (some off the image
-    edge)."""
+    coords spread like reprojected 3x3 patches (some off the image edge),
+    or with ``spread`` every other edge's 3x3 grid scaled by 6 (its
+    level-1 windows do not fit one box)."""
     import torch
     from dpvo_tpu_torch.ops.corr_cuda import PAD, padded_hw, RAW_DIM
     F, K, h, w, C, DIMo = 36, 36 * 96, 120, 160, 128, 384
@@ -147,8 +199,11 @@ def corr_inputs(E, n_frames, n_patches, dev, gen):
     ctr = ctr * torch.tensor([w + 8.0, h + 8.0], device=dev) - 4.0
     grid = torch.arange(3, device=dev, dtype=torch.float32) - 1
     coords = torch.empty((E, 2, 3, 3), device=dev)
-    coords[:, 0] = ctr[:, 0, None, None] + grid[None, None, :]
-    coords[:, 1] = ctr[:, 1, None, None] + grid[None, :, None]
+    scale = torch.ones((E, 1, 1), device=dev)
+    if spread:
+        scale[1::2] = 6.0
+    coords[:, 0] = ctr[:, 0, None, None] + grid[None, None, :] * scale
+    coords[:, 1] = ctr[:, 1, None, None] + grid[None, :, None] * scale
     coords += 0.3 * torch.randn(coords.shape, generator=gen, device=dev)
     kk = torch.randint(0, n_patches, (E,), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -273,7 +328,8 @@ def phase_probes(results, E, g_pre, f1, f2, coords, ff):
         scale = want.abs().max().item()
         ok = (bool(torch.isfinite(got).all()) and scale > 0
               and err <= TOL_PROBE * scale)
-        ms = time_ms(lambda: corr_cuda.corr_probe(*args), reps=10)
+        ms = time_ms(lambda: corr_cuda.corr_probe(*args), reps=10,
+                     windows=KERNEL_WINDOWS)
         plain_ms = time_ms(lambda: corr_cuda.corr_probe_plain(*args),
                            reps=3, warm=1)
         nbytes, nops = probe_work(g_pre, (f1, f2), coords, ff, probe, got)
@@ -314,10 +370,122 @@ def probe_path(E=E_MAIN):
     return launches
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version at the SHAPES above."""
+def fit_share(coords, f1, f2):
+    """The share of (edge, level) tasks whose 9 windows fit one box, per
+    level, the number of windows read from a box of their own, and the
+    ring bytes per edge the plan reads (box rows of ncols pixels, 8 rows
+    for a window on its own box): ``corr_cuda.window_boxes``, the bf16
+    kernels' plan."""
+    from dpvo_tpu_torch.ops import corr_cuda
+    c = coords.detach().cpu()
+    fmaps = (f1, f2)
+    b = corr_cuda.window_boxes(c, tuple(f.shape[1] for f in fmaps),
+                               tuple(f.shape[2] for f in fmaps))
+    share = b["fits"].double().mean(0).tolist()
+    own = ~b["window_fits"]
+    pixels = (b["nrows"] * b["ncols"] * own.logical_not().any(-1)).sum()
+    for level, f in enumerate(fmaps):
+        bx = corr_cuda._window_origin(c * 0.25 ** level, *f.shape[1:3])[0]
+        cols = bx - bx.clamp(max=f.shape[2] - corr_cuda.DW) + corr_cuda.D
+        pixels += (corr_cuda.D * cols * own[:, level]).sum()
+    kb = float(pixels) * f1.shape[-1] * f1.element_size() / len(c) / 1e3
+    return (f"fit one box: level 1 {share[0]:.4%}, level 2 {share[1]:.4%}; "
+            f"windows on a box of their own {int(own.sum())} of "
+            f"{own.numel()}; box rows read {kb:.1f} KB per edge")
+
+
+def check_enc(results, key, args):
+    """K2 against its plain version on ``args``: error, times, bound;
+    stored under results["corr_enc"][key]."""
     import torch
-    from dpvo_tpu_torch.ops import agg_cuda, corr_cuda
+    from dpvo_tpu_torch.ops import corr_cuda
+    E = args[5].shape[0]
+    got = corr_cuda.corr_enc(*args)
+    want = corr_cuda.corr_enc_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= TOL_K2 * scale
+    ms = time_ms(lambda: corr_cuda.corr_enc(*args), reps=10,
+                 windows=KERNEL_WINDOWS)
+    plain_ms = time_ms(lambda: corr_cuda.corr_enc_plain(*args), reps=3,
+                       warm=1)
+    nbytes, nops = corr_work(*args)
+    b_ms, b_by = bound(nbytes, nops, "bf16")
+    log(f"[kernels] corr_enc {key}: E={E} max_abs_err={err:.3e} "
+        f"max|plain|={scale:.3e} tol={TOL_K2}*max|plain| "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"corr_enc disagrees with its plain version at "
+                         f"{key}")
+    results.setdefault("corr_enc", {})[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    return ms
+
+
+def unfused_line(key, args, enc_ms):
+    """The yardstick beside K2: K1 raw on the same edges' gathered patch
+    rows, then the cuBLAS product of its (E, 882) features with w_raw."""
+    import torch
+    from dpvo_tpu_torch.ops import corr_cuda
+    g_all, kk, w_raw, f1, f2, coords, ff = args
+    E = coords.shape[0]
+    g_pre = g_all[kk.long()]
+    ms = time_ms(lambda: corr_cuda.corr_fused(
+        g_pre, f1, f2, coords, ff, "raw", torch.bfloat16).reshape(E, -1)
+        @ w_raw, reps=10, windows=KERNEL_WINDOWS)
+    log(f"[kernels] corr_enc {key}: unfused_ms={ms:.4f} (K1 raw + cuBLAS "
+        f"({E}, 882) x (882, {w_raw.shape[1]}); yardstick only) against "
+        f"K2 {enc_ms:.4f}")
+
+
+def check_raw(results, key, name, layout, g_pre, f1, f2, coords, ff):
+    """K1 (bf16 out) or K5 (fp32 out) in ``layout`` against its plain
+    version; stored under results[name][key, layout]."""
+    import torch
+    from dpvo_tpu_torch.ops import corr_cuda
+    E = coords.shape[0]
+    if name == "corr_fused":
+        fmaps = (f1, f2)
+        kargs = (g_pre, f1, f2, coords, ff, layout, torch.bfloat16)
+        kernel, plain = corr_cuda.corr_fused, corr_cuda.corr_fused_plain
+    else:
+        fmaps = (f1,)
+        kargs = (g_pre, f1, coords, ff, layout == "raw")
+        kernel = corr_cuda.corr_single
+        plain = corr_cuda.corr_single_plain
+    got = kernel(*kargs)
+    want = plain(*kargs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = TOL_K2 * scale if name == "corr_fused" else TOL_F32
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    ms = time_ms(lambda: kernel(*kargs), reps=10, windows=KERNEL_WINDOWS)
+    plain_ms = time_ms(lambda: plain(*kargs), reps=3, warm=1)
+    nbytes, nops = raw_work(g_pre, fmaps, coords, ff, got)
+    b_ms, b_by = bound(nbytes, nops, "bf16")
+    log(f"[kernels] {name} {layout} {key}: E={E} max_abs_err={err:.3e} "
+        f"max|plain|={scale:.3e} tol={tol:.3e} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP) "
+        f"library_ms=none (no single call) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name} ({layout}) disagrees with its plain "
+                         f"version at {key}")
+    results.setdefault(name, {})[key, layout] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at the SHAPES above, then K2
+    and K1 on spread patches."""
+    import torch
+    from dpvo_tpu_torch.ops import agg_cuda
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     k_cap, D_agg, D_ba = 4096, 384, 6 * 16 + 2
@@ -325,28 +493,9 @@ def phase_kernels(dev):
     for E, n_frames, n_patches in SHAPES:
         # K2: fused correlation + corr-encoder product (bf16)
         args = corr_inputs(E, n_frames, n_patches, dev, gen)
-        got = corr_cuda.corr_enc(*args)
-        want = corr_cuda.corr_enc_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= TOL_K2 * scale
-        ms = time_ms(lambda: corr_cuda.corr_enc(*args), reps=10)
-        plain_ms = time_ms(lambda: corr_cuda.corr_enc_plain(*args), reps=3,
-                           warm=1)
-        nbytes, nops = corr_work(*args)
-        b_ms, b_by = bound(nbytes, nops, "bf16")
-        log(f"[kernels] corr_enc E={E}: max_abs_err={err:.3e} "
-            f"max|plain|={scale:.3e} tol={TOL_K2}*max|plain| "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP) "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"corr_enc disagrees with its plain version "
-                             f"at E={E}")
-        results.setdefault("corr_enc", {})[E] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
+        log(f"[kernels] E={E}: " + fit_share(args[5], args[3], args[4]))
+        enc_ms = check_enc(results, E, args)
+        unfused_line(E, args, enc_ms)
 
         # K1: two-level correlation (bf16) in the raw, v10 and v12 layouts
         # (v10 is the layout of the dev variant D1), and
@@ -354,42 +503,11 @@ def phase_kernels(dev):
         # on the same edges' gathered patch rows
         g_all, kk, _, f1, f2, coords, ff = args
         g_pre = g_all[kk.long()]
-        del args, got, want
+        del args
         for name, layout in (("corr_fused", "raw"), ("corr_fused", "v10"),
                              ("corr_fused", "v12"), ("corr_single", "raw"),
                              ("corr_single", "ref")):
-            if name == "corr_fused":
-                fmaps = (f1, f2)
-                kargs = (g_pre, f1, f2, coords, ff, layout, torch.bfloat16)
-                kernel, plain = corr_cuda.corr_fused, corr_cuda.corr_fused_plain
-            else:
-                fmaps = (f1,)
-                kargs = (g_pre, f1, coords, ff, layout == "raw")
-                kernel = corr_cuda.corr_single
-                plain = corr_cuda.corr_single_plain
-            got = kernel(*kargs)
-            want = plain(*kargs)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = TOL_K2 * scale if name == "corr_fused" else TOL_F32
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            ms = time_ms(lambda: kernel(*kargs), reps=10)
-            plain_ms = time_ms(lambda: plain(*kargs), reps=3, warm=1)
-            nbytes, nops = raw_work(g_pre, fmaps, coords, ff, got)
-            b_ms, b_by = bound(nbytes, nops, "bf16")
-            log(f"[kernels] {name} {layout} E={E}: max_abs_err={err:.3e} "
-                f"max|plain|={scale:.3e} tol={tol:.3e} ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP) "
-                f"library_ms=none (no single call) {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"{name} ({layout}) disagrees with its plain "
-                                 f"version at E={E}")
-            results.setdefault(name, {})[E, layout] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
-            del got, want
+            check_raw(results, E, name, layout, g_pre, f1, f2, coords, ff)
         if E in PROBE_SHAPES:
             phase_probes(results, E, g_pre, f1, f2, coords, ff)
         del g_all, kk, f1, f2, coords, ff, g_pre
@@ -406,7 +524,7 @@ def phase_kernels(dev):
         ok = bool(torch.allclose(got, want, rtol=TOL_SEG[0],
                                  atol=TOL_SEG[1]))
         ms = time_ms(lambda: agg_cuda.segment_softmax_sums(
-            gate, val, shift, gid, g_cap), reps=20)
+            gate, val, shift, gid, g_cap), reps=20, windows=KERNEL_WINDOWS)
         plain_ms = time_ms(lambda: agg_cuda.segment_softmax_sums_plain(
             gate, val, shift, gid, g_cap), reps=10)
         G = agg_cuda.padded_groups(g_cap)
@@ -432,13 +550,14 @@ def phase_kernels(dev):
         ok = bool(torch.allclose(got, want, rtol=TOL_SEG[0],
                                  atol=TOL_SEG[1]))
         ms = time_ms(lambda: agg_cuda.segment_sums(vals, gid, k_cap + 1),
-                     reps=20)
+                     reps=20, windows=KERNEL_WINDOWS)
         plain_ms = time_ms(lambda: agg_cuda.segment_sums_plain(
             vals, gid, k_cap + 1), reps=10)
         G = agg_cuda.padded_groups(k_cap + 1)
         gid_l = gid.long()
         lib_ms = time_ms(lambda: torch.zeros(
-            (G, D_ba), device=dev).index_add_(0, gid_l, vals), reps=20)
+            (G, D_ba), device=dev).index_add_(0, gid_l, vals), reps=20,
+            windows=KERNEL_WINDOWS)
         nbytes = E * D_ba * 4 + E * 4 + G * D_ba * 4
         b_ms, b_by = bound(nbytes, E * D_ba, "f32")
         log(f"[kernels] segment_sums E={E}: max_abs_err={err:.3e} "
@@ -451,6 +570,17 @@ def phase_kernels(dev):
         results.setdefault("segment_sums", {})[E] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
+
+    # K2 and K1 with every other patch spread beyond one box
+    E, n_frames, n_patches = SHAPES[0]
+    args = corr_inputs(E, n_frames, n_patches, dev, gen, spread=True)
+    key = f"{E} spread"
+    log(f"[kernels] {key}: " + fit_share(args[5], args[3], args[4]))
+    check_enc(results, key, args)
+    g_all, kk, _, f1, f2, coords, ff = args
+    for layout in ("raw", "v12"):
+        check_raw(results, key, "corr_fused", layout, g_all[kk.long()], f1,
+                  f2, coords, ff)
     return results
 
 
@@ -550,11 +680,7 @@ def phase_agreement(dev):
             p_gpu, s_gpu = small_drive(dev, thresh, network, **lag)
             p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network,
                                        **lag)
-        err_t = float(np.abs(p_gpu[:, :3] - p_cpu[:, :3]).max())
-        qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1)) / np.maximum(
-            np.linalg.norm(p_gpu[:, 3:], axis=-1)
-            * np.linalg.norm(p_cpu[:, 3:], axis=-1), 1e-12)
-        err_q = float(1.0 - qd.min())
+        err_t, err_q = pose_errors(p_gpu, p_cpu)
         ok = (s_gpu == s_cpu and np.isfinite(p_gpu).all()
               and err_t <= atol_t and err_q <= atol_q)
         log(f"[agree] {regime} v{version}: n={s_gpu[0]} edges={s_gpu[1]} "
@@ -566,7 +692,93 @@ def phase_agreement(dev):
                              f"engine ({regime}, version {version})")
 
 
+# the bf16 engine with the kernels against the same with the plain
+# versions: the always-merge envelope of the fp32 drives
+AGREE_BF16 = AGREE["always_merge"][1:]
+
+
+@contextlib.contextmanager
+def plain_correlation():
+    """Swap ``corr_cuda.corr_enc`` / ``corr_fused`` for their plain
+    versions (the engine looks them up at call time)."""
+    from dpvo_tpu_torch.ops import corr_cuda
+    old = corr_cuda.corr_enc, corr_cuda.corr_fused
+    corr_cuda.corr_enc = corr_cuda.corr_enc_plain
+    corr_cuda.corr_fused = corr_cuda.corr_fused_plain
+    try:
+        yield
+    finally:
+        corr_cuda.corr_enc, corr_cuda.corr_fused = old
+
+
+def pose_errors(p_a, p_b):
+    """max |translation difference| and 1 - min |quaternion dot|."""
+    err_t = float(np.abs(p_a[:, :3] - p_b[:, :3]).max())
+    qd = np.abs((p_a[:, 3:] * p_b[:, 3:]).sum(-1)) / np.maximum(
+        np.linalg.norm(p_a[:, 3:], axis=-1)
+        * np.linalg.norm(p_b[:, 3:], axis=-1), 1e-12)
+    return err_t, float(1.0 - qd.min())
+
+
+def phase_agreement_bf16(dev):
+    """The small drive at MIXED_PRECISION=True on the card, with the
+    kernels and with corr_enc / corr_fused swapped for their plain
+    versions: structure exact, poses within AGREE_BF16; the kernel drive
+    must launch its correlation kernel and the plain drive must not."""
+    from dpvo_tpu_torch.ops import _cuda
+    network = small_network()
+    atol_t, atol_q = AGREE_BF16
+    for version, name in ((13, "corr_enc"), (12, "corr_fused")):
+        for regime, (thresh, _, _) in AGREE.items():
+            with corr_version(version):
+                _cuda.reset_launches()
+                p_k, s_k = small_drive(dev, thresh, network,
+                                       MIXED_PRECISION=True)
+                n_kernel = _cuda.launches[name]
+                _cuda.reset_launches()
+                with plain_correlation():
+                    p_p, s_p = small_drive(dev, thresh, network,
+                                           MIXED_PRECISION=True)
+                n_plain = _cuda.launches[name]
+            err_t, err_q = pose_errors(p_k, p_p)
+            ok = (s_k == s_p and np.isfinite(p_k).all() and n_kernel > 0
+                  and n_plain == 0 and err_t <= atol_t and err_q <= atol_q)
+            log(f"[agree] bf16 kernels vs plain, {regime} v{version}: "
+                f"n={s_k[0]} edges={s_k[1]} structure "
+                f"{'same' if s_k == s_p else 'DIFFERENT'}; "
+                f"max|dt|={err_t:.3e} (tol {atol_t}) "
+                f"1-min|q.q'|={err_q:.3e} (tol {atol_q}); {name} launches "
+                f"{n_kernel} / {n_plain} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the bf16 engine with the kernels "
+                                 f"disagrees with the plain versions "
+                                 f"({regime}, version {version})")
+
+
 # --- phase 4: the main path at full width --------------------------------
+
+
+@contextlib.contextmanager
+def last_corr_coords():
+    """Keep the coords and rings of the last corr_enc / corr_fused call the
+    engine makes (``box[0]``), passing every call through unchanged."""
+    from dpvo_tpu_torch.ops import corr_cuda
+    box = [None]
+    old = corr_cuda.corr_enc, corr_cuda.corr_fused
+
+    def enc(g_all, kk, w, f1, f2, coords, ff):
+        box[0] = (coords, f1, f2)
+        return old[0](g_all, kk, w, f1, f2, coords, ff)
+
+    def fused(g_pre, f1, f2, coords, *rest):
+        box[0] = (coords, f1, f2)
+        return old[1](g_pre, f1, f2, coords, *rest)
+
+    corr_cuda.corr_enc, corr_cuda.corr_fused = enc, fused
+    try:
+        yield box
+    finally:
+        corr_cuda.corr_enc, corr_cuda.corr_fused = old
 
 def device_profile(prof, wall_ms, n_frames, top=8):
     """Device busy time (the union of the CUDA kernel intervals the
@@ -641,28 +853,30 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     _cuda.reset_launches()
     ms, edges = [], []
     n_timed = n_frames - n_profile
-    for t in range(n_timed):
-        img = frame(t)
-        t0 = time.perf_counter()
-        slam(t, img, intr)
-        sync()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        edges.append(slam.hs.e_num)
-    profile = "not profiled"
-    if n_profile:
-        imgs = [frame(t) for t in range(n_timed, n_frames)]
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with last_corr_coords() as last:
+        for t in range(n_timed):
+            img = frame(t)
             t0 = time.perf_counter()
-            for t, img in zip(range(n_timed, n_frames), imgs):
-                slam(t, img, intr)
+            slam(t, img, intr)
             sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        edges.append(slam.hs.e_num)
-        profile = device_profile(prof, wall_ms, n_profile)
-    poses, tstamps = slam.terminate()
-    sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            edges.append(slam.hs.e_num)
+        profile = "not profiled"
+        if n_profile:
+            imgs = [frame(t) for t in range(n_timed, n_frames)]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for t, img in zip(range(n_timed, n_frames), imgs):
+                    slam(t, img, intr)
+                sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            edges.append(slam.hs.e_num)
+            profile = device_profile(prof, wall_ms, n_profile)
+        poses, tstamps = slam.terminate()
+        sync()
+    fits = fit_share(*last[0])
     launches = dict(_cuda.launches)
     steady = sorted(ms[n_warm:])
     out = dict(regime=name, frames=n_frames, keyframes=slam.n,
@@ -675,6 +889,8 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
         f"live edges {edges[-1]} (max {max(edges)}), keyframes {slam.n}, "
         f"launches {launches}")
     log(f"[profile] {name} frames {n_timed}..{n_frames - 1}: {profile}")
+    log(f"[engine] {name} last update ({last[0][0].shape[0]} edges): "
+        f"{fits}")
     expect, absent = PATH_KERNELS[version]
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
           and len(tstamps) == n_frames
@@ -703,10 +919,11 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     for regime in ("merge", "retain"):
         torch.cuda.synchronize()
         _cuda.reset_launches()
-        r = bench_torch.run_regime(regime, device=dev,
-                                   min_windows=n_windows,
-                                   max_windows=n_windows,
-                                   profile_frames=n_profile)
+        with last_corr_coords() as last:
+            r = bench_torch.run_regime(regime, device=dev,
+                                       min_windows=n_windows,
+                                       max_windows=n_windows,
+                                       profile_frames=n_profile)
         r["launches"] = dict(_cuda.launches)
         ms = [1e3 / w for w in r["windows"]]
         profile = device_profile(*r["profile"])
@@ -719,6 +936,8 @@ def phase_bench(dev, n_windows=2, n_profile=5):
             f"over their frames), keyframes {r['keyframes']}, launches "
             f"{r['launches']}")
         log(f"[profile] bench {regime} last {n_profile} frames: {profile}")
+        log(f"[bench] {regime} last update ({last[0][0].shape[0]} edges): "
+            + fit_share(*last[0]))
         ok = (np.isfinite(r["poses"]).all() and len(r["tstamps"]) == n
               and all(r["launches"].get(k, 0) > 0 for k in expect)
               and not any(r["launches"].get(k, 0) for k in absent))
@@ -746,12 +965,23 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     return out
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dpvo_tpu_torch.ops import _cuda
+    phases = ("kernels", "agree", "agree_bf16", "engine", "bench")
+    only = None
+    if "--only" in argv:
+        only = set(argv[argv.index("--only") + 1].split(","))
+        if not only <= set(phases):
+            print(f"chip_smoke: --only takes {','.join(phases)}",
+                  file=sys.stderr)
+            return 2
+
+    def run(phase):
+        return only is None or phase in only
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -761,20 +991,33 @@ def main():
     _cuda.lib()
     log(f"[machine] kernel build+load {time.perf_counter() - t0:.2f}s "
         f"(nvcc {_cuda.build_seconds})")
+    hmma = hmma_counts(_cuda.build())
+    log("[machine] HMMA instructions per kernel (cuobjdump -sass): "
+        + ("not available" if hmma is None else
+           "; ".join(f"{k} {v}" for k, v in hmma.items())))
 
-    _cuda.reset_launches()
-    kern = phase_kernels(dev)
-    single_launches = _cuda.launches["corr_single"]
-    log(f"[kernels] corr_single is on no engine path (its callers are "
-        f"corr_grouped and the tests): its launches below are phase 2's "
-        f"({single_launches})")
-    probe_launches = probe_path()
-    phase_agreement(dev)
-    drive_engine(dev, "merge")
-    drive_engine(dev, "retain")
-    with corr_version(12):
-        raw = drive_engine(dev, "retain")
-    bench = phase_bench(dev)
+    if run("kernels"):
+        _cuda.reset_launches()
+        kern = phase_kernels(dev)
+        single_launches = _cuda.launches["corr_single"]
+        log(f"[kernels] corr_single is on no engine path (its callers are "
+            f"corr_grouped and the tests): its launches below are phase "
+            f"2's ({single_launches})")
+        probe_launches = probe_path()
+    if run("agree"):
+        phase_agreement(dev)
+    if run("agree_bf16"):
+        phase_agreement_bf16(dev)
+    if run("engine"):
+        drive_engine(dev, "merge")
+        drive_engine(dev, "retain")
+        with corr_version(12):
+            raw = drive_engine(dev, "retain")
+    if run("bench"):
+        bench = phase_bench(dev)
+    if only is not None:
+        log(f"[machine] ran {','.join(sorted(only))} alone: no kernels line")
+        return 0
 
     launches = {**bench["merge"]["launches"], **probe_launches,
                 "corr_fused": raw["launches"]["corr_fused"],
@@ -802,4 +1045,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -21,41 +21,56 @@
 // What bounds it on an H100: bytes. It does 64 * 128 * 2 = 16 kFLOP per
 // (edge, level, pixel), 0.3 MFLOP per two-level edge, against 2.3 kB of g
 // rows and 1.8 kB (raw) to 4.6 kB (v12) of output per edge in bf16, plus
-// the window pixels the coordinates touch, each read once (most of the
-// target frames' rings; the windows of neighbouring pixels overlap). At
-// 6144 edges over 8 frames that is about 76 MB, 23 us at 3.35 TB/s,
-// against 1.8 GFLOP, 2 us on the bf16 tensor cores. This first version does
-// the taps as fp32 FMAs on the CUDA cores (67 TFLOP/s: 27 us at 6144 edges)
-// and rereads each window row from L2 once for every pixel whose window
-// covers it, so L2 traffic bounds it, well above both (times in PERF.md).
-// What the design does about it: the window stage of K2 (corr_window.cuh):
-// one block owns EB edges, each warp reads whole 8x128 window rows with
-// 16-byte loads and reduces the channel products with half-warp shuffles;
-// the taps stay in shared memory, and the write pass walks each output row
-// in order, so consecutive threads store consecutive lanes.
+// the window pixels the coordinates touch, each read once. At 45312
+// retain edges that is 82 MB (raw) to 120 MB (v12), 0.08-0.12 ms at
+// 3.35 TB/s, against 13.4 GFLOP, 14 us on the bf16 tensor cores
+// (chip_smoke.py's bound, NVIDIA H100 80GB HBM3 at 700 W).
+// What the design does about it: on bf16 rings, corr_window.cuh's box
+// stage. One block owns EB_BOX = 4 edges, one warp each, and three blocks
+// share an SM, so one block's write pass overlaps the others' loads; a
+// warp keeps two box rows in flight (three row buffers). A warp reads each
+// patch's box of ring rows once per level with cp.async (45-48 KB per edge
+// from L2 on the engine's coordinates, instead of about 295 KB of window
+// rows reread for every pixel whose window covers them), takes the taps on
+// the tensor cores and blends into shared memory; then the write pass
+// copies the raw layout's rows flat and the v10 / v12 rows in 16-byte
+// chunks, consecutive threads on consecutive addresses. What bounds it
+// now: the latency and L2 traffic of those box rows, 4-7x the byte bound
+// (PERF.md). On fp32 rings (MIXED_PRECISION=False) the taps stay fp32
+// FMAs on the CUDA cores (window_taps: one warp per 8x128 window row,
+// half-warp shuffle reductions), since tensor cores would take fp32 as
+// TF32.
 //
 // Non-finite coordinates are clamped in float before the int conversion, so
 // they read a window inside the padded map (never out of bounds); their
 // fractional part is NaN, and so are their output values.
 //
 // corr_probe_kernel<PROBE> replaces scripts/dev/corr_variants.py:
-// probe_variant (D3): K1's window stage on bf16 rings, stopped after one
-// phase (corr_window.cuh probe_row), one template instance per probe. Like
-// the TPU probe's constant output block, only the last 16 edges (the last
+// probe_variant (D3): the per-window-row stage on bf16 rings, stopped after
+// one phase (corr_window.cuh probe_row), one template instance per probe.
+// It keeps the TPU probes' semantics; K1's bf16 stage is now the box
+// stage, which the probes do not mirror. Like the TPU probe's constant
+// output block, only the last 16 edges (the last
 // TPU tile) are stored, fp32 (16, 2, 9, 8, 128) as (edge, level, pixel,
 // window row, lane); every other row's values feed a store guarded by
 // value == never, with never a NaN passed at run time, so no phase is dead
 // code and almost no output traffic is added. What bounds a probe: the
 // bytes of the window pixels it reads (one pixel column per row for load
 // and shift, 16 for convert, 8 for multiply and dot), as for K1.
+#include <type_traits>
+
 #include "corr_window.cuh"
 
 namespace {
 
 using namespace corr;
 
-constexpr int EB = 8;             // edges per block
-constexpr int NT = 256;           // threads per block
+constexpr int EB = 8;             // edges per block (fp32 rings)
+constexpr int NT = 256;           // threads per block (fp32 rings)
+constexpr int EB_BOX = 4;         // edges per block (bf16 rings), a warp
+                                  // each: three blocks share an SM, so one's
+                                  // write pass overlaps the others' loads
+constexpr int NS = 3;             // box row buffers per warp
 
 enum Layout { RAW = 0, V10 = 1, V12 = 2, REF = 3 };
 
@@ -110,6 +125,7 @@ __device__ __forceinline__ bool decode(int layout, int o, int& lp, int& dy,
   }
 }
 
+// fp32 rings: the per-window-row stage's taps and metadata
 template <int NL>
 struct Shared {
   float taps[EB][NL * P2 * D * D];  // (level, p, ty, tx) per edge
@@ -119,42 +135,153 @@ struct Shared {
   long long grow[EB];               // element offset of g_pre[e]
 };
 
-template <int NL, typename Tin, typename Tout>
-__global__ void __launch_bounds__(NT) corr_raw_kernel(Args a) {
-  __shared__ __align__(16) Shared<NL> s;
-  const int tid = threadIdx.x;
-  const int e0 = blockIdx.x * EB;
-  const int n_here = min(a.E, a.n_live) - e0;   // computed rows here
+// bf16 rings: one box stage per warp and the blended features
+template <int NL>
+struct BoxShared {
+  BoxWarp<NS> warp[EB_BOX];
+  float feat[EB_BOX][NL * P2 * DB * DB];  // (level, p, dy, dx) per edge
+};
 
-  window_meta<NL, EB, NT>(a.coords, a.ff, e0, n_here, a.Hp1, a.Wp1, a.Hp2,
-                          a.Wp2, s.win, s.fx, s.fy);
-  if (tid < EB) s.grow[tid] = (long long)(e0 + tid) * P2 * C;
-  __syncthreads();
+// Edges, threads and blocks per SM for input type Tin.
+template <typename Tin>
+struct Tiling {
+  static constexpr bool box = std::is_same<Tin, __nv_bfloat16>::value;
+  static constexpr int eb = box ? EB_BOX : EB;
+  static constexpr int nt = box ? 32 * EB_BOX : NT;
+  static constexpr int per_sm = box ? 3 : 1;
+};
 
-  window_taps<Tin, NL, EB, NT>(
-      static_cast<const Tin*>(a.g_pre), s.grow,
-      static_cast<const Tin*>(a.fmap1), static_cast<const Tin*>(a.fmap2),
-      a.Wp1, a.Wp2, n_here, s.win, s.taps);
-  __syncthreads();
-
+// The write pass: each output row in order, dead lanes and rows at or past
+// n_here zero; value(e, lp, dy, dx) gives a live lane's blended value.
+template <int NL, typename Tout, int EBK, int NTK, typename Value>
+__device__ __forceinline__ void write_rows(const Args& a, int e0,
+                                           int n_here, Value value) {
   const int row = row_len(a.layout, NL);
   Tout* out = static_cast<Tout*>(a.out);
-  for (int i = tid; i < EB * row; i += NT) {
+  for (int i = threadIdx.x; i < EBK * row; i += NTK) {
     const int e = i / row;
     const int o = i % row;
     if (e0 + e >= a.E) break;
     int lp, dy, dx;
     float v = 0.f;
     if (decode(a.layout, o, lp, dy, dx) && e < n_here)
-      v = blend(&s.taps[e][lp * D * D], s.fx[e][lp], s.fy[e][lp], dy, dx);
+      v = value(e, lp, dy, dx);
     out[(size_t)(e0 + e) * row + o] = from_f<Tout>(v);
+  }
+}
+
+// 8 consecutive output values, one 16-byte (bf16) or two (fp32) stores.
+__device__ __forceinline__ void store8(__nv_bfloat16* o, const float v[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(o) = u;
+}
+__device__ __forceinline__ void store8(float* o, const float v[8]) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The write pass of the box path from the blended features feat (EBK rows
+// of NL * 441 in raw order): RAW is a flat copy of the block's rows; V10
+// and V12 go out in 16-byte chunks, each one (p, level, dy) window row of
+// 8 lanes (dx < 7 live) or a dead chunk; REF decodes every lane.
+template <int NL, typename Tout, int EBK, int NTK>
+__device__ __forceinline__ void write_feat(const Args& a, int e0,
+                                           int n_here, const float* feat) {
+  constexpr int NF = NL * P2 * DB * DB;
+  const int row = row_len(a.layout, NL);
+  const int n_rows = min(EBK, a.E - e0);
+  const int n_live = max(min(n_here, n_rows), 0);
+  Tout* out = static_cast<Tout*>(a.out) + (size_t)e0 * row;
+  if (a.layout == RAW) {
+    for (int i = threadIdx.x; i < n_rows * NF; i += NTK)
+      out[i] = from_f<Tout>(i < n_live * NF ? feat[i] : 0.f);
+  } else if (a.layout == V10 || a.layout == V12) {
+    const int w = a.layout == V12 ? DW : D;       // lanes per window row
+    const int chunks = row / 8;
+    for (int i = threadIdx.x; i < n_rows * chunks; i += NTK) {
+      const int e = i / chunks;
+      const int lane0 = 8 * (i % chunks);
+      const int p = lane0 / (2 * D * w);
+      const int lane = lane0 % (2 * D * w);       // level*8w + dy*w + dx0
+      const int dy = (lane / w) % D;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (e < n_live && dy < DB && lane % w == 0) {
+        const float* f = feat + e * NF
+                         + ((lane / (D * w) * P2 + p) * DB + dy) * DB;
+#pragma unroll
+        for (int dx = 0; dx < DB; ++dx) v[dx] = f[dx];
+      }
+      store8(out + (size_t)e * row + lane0, v);
+    }
+  } else {
+    write_rows<NL, Tout, EBK, NTK>(a, e0, n_here,
+                                   [&](int e, int lp, int dy, int dx) {
+      return feat[e * NF + (lp * DB + dy) * DB + dx];
+    });
+  }
+}
+
+template <int NL, typename Tin, typename Tout>
+__global__ void __launch_bounds__(Tiling<Tin>::nt, Tiling<Tin>::per_sm)
+    corr_raw_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int eb = Tiling<Tin>::eb;
+  constexpr int nt = Tiling<Tin>::nt;
+  const int tid = threadIdx.x;
+  const int e0 = blockIdx.x * eb;
+  const int n_here = min(a.E, a.n_live) - e0;   // computed rows here
+
+  if constexpr (Tiling<Tin>::box) {
+    BoxShared<NL>& s = *reinterpret_cast<BoxShared<NL>*>(smem_raw);
+    const int we = tid >> 5;        // this warp's edge
+    if (we < n_here) {
+      const int edge = e0 + we;
+      box_taps<NL, NS>(
+          static_cast<const Tin*>(a.g_pre) + (size_t)edge * P2 * C,
+          static_cast<const Tin*>(a.fmap1), static_cast<const Tin*>(a.fmap2),
+          a.ff[edge], a.coords + (size_t)edge * 2 * P2, a.Hp1, a.Wp1, a.Hp2,
+          a.Wp2, s.warp[we], [&](int k, float v) { s.feat[we][k] = v; });
+    }
+    __syncthreads();
+    write_feat<NL, Tout, eb, nt>(a, e0, n_here, &s.feat[0][0]);
+  } else {
+    Shared<NL>& s = *reinterpret_cast<Shared<NL>*>(smem_raw);
+    window_meta<NL, EB, NT>(a.coords, a.ff, e0, n_here, a.Hp1, a.Wp1,
+                            a.Hp2, a.Wp2, s.win, s.fx, s.fy);
+    if (tid < EB) s.grow[tid] = (long long)(e0 + tid) * P2 * C;
+    __syncthreads();
+
+    window_taps<Tin, NL, EB, NT>(
+        static_cast<const Tin*>(a.g_pre), s.grow,
+        static_cast<const Tin*>(a.fmap1), static_cast<const Tin*>(a.fmap2),
+        a.Wp1, a.Wp2, n_here, s.win, s.taps);
+    __syncthreads();
+    write_rows<NL, Tout, eb, nt>(a, e0, n_here,
+                                 [&](int e, int lp, int dy, int dx) {
+      return blend(&s.taps[e][lp * D * D], D, s.fx[e][lp], s.fy[e][lp], dy,
+                   dx);
+    });
   }
 }
 
 template <int NL, typename Tin, typename Tout>
 int launch(const Args& a, cudaStream_t stream) {
+  using Tl = Tiling<Tin>;
+  constexpr bool box = Tl::box;
+  if (box && (a.Wp1 < BOX_W || (NL == 2 && a.Wp2 < BOX_W)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = box ? (int)sizeof(BoxShared<NL>) : (int)sizeof(Shared<NL>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      corr_raw_kernel<NL, Tin, Tout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   if (a.E > 0) {
-    corr_raw_kernel<NL, Tin, Tout><<<(a.E + EB - 1) / EB, NT, 0, stream>>>(a);
+    corr_raw_kernel<NL, Tin, Tout>
+        <<<(a.E + Tl::eb - 1) / Tl::eb, Tl::nt, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -263,9 +390,10 @@ extern "C" {
 
 // All pointers are device pointers to contiguous tensors (see Args);
 // levels 1 (K5: layouts RAW, REF; fmap2 unused) or 2 (K1: RAW, V10, V12);
-// in_bf16 / out_bf16 select bf16 over fp32. Returns the cudaGetLastError()
-// code of the launch (0 on success), cudaErrorInvalidValue for a level and
-// layout pair that does not exist.
+// in_bf16 / out_bf16 select bf16 over fp32 (bf16 rings: 16-byte aligned,
+// at least 16 columns). Returns the cudaGetLastError() code of the launch
+// (0 on success), cudaErrorInvalidValue for a level and layout pair that
+// does not exist or a ring too narrow for the box stage.
 int dpvo_corr_raw(int levels, int in_bf16, int out_bf16, int layout,
                   const void* g_pre, const void* ff, const void* fmap1,
                   const void* fmap2, const void* coords, void* out, int E,

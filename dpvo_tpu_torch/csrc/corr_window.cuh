@@ -3,14 +3,40 @@
 // fractional offsets of the 8x8 tap window in a zero-padded feature ring,
 // the 64 taps g . fmap over 128 channels, and the bilinear 8x8 -> 7x7 blend.
 //
-// Taps: one warp task is one window row (8 taps x 128 channels, 1024
-// contiguous values). Lane l reads the 16-byte chunks j = l + 32k (k < 4),
-// which are tap (l >> 4) + 2k, channels 8 * (l & 15) .. + 8, and half-warp
-// shuffles reduce the per-channel products. Accumulation is fp32.
+// bf16 rings: the box stage (box_taps). One warp owns one edge. The 9
+// windows of a 3x3 patch at one level overlap almost entirely, so the warp
+// reads their union once: a box of up to 16 ring rows of up to 16 pixels
+// (level_taps plans it; ops/corr_cuda.py window_boxes is the same plan in
+// Python). Each box row (only the pixels the windows read, 128 channels
+// each, contiguous) is copied with cp.async into a ring of XOR-swizzled
+// shared row buffers (K2 two, K1 three), so the next rows load while row r
+// multiplies and ldmatrix reads without bank conflicts (pixels lie 256 B
+// apart: unswizzled, 8-way conflicts). The tensor cores take the taps: A
+// is the edge's 9 patch rows (rows 9-15 zero) held in registers for both
+// levels, B the box row's 16 pixels, 16 mma.sync m16n8k16 (bf16 in, fp32
+// accumulation) per box row (8 when its pixels fit one n-tile). Each
+// product goes straight to the window that reads it: box row r, pixel px
+// is tap (r - oy_p, px - ox_p) of window p, where (oy_p, ox_p) =
+// (by_p - y0, bx_p - x0) is the window's origin in the box; the 9
+// windows' 8x8 fp32 taps stay in shared memory. A window that does
+// not fit the box (an extreme scale change, a strong rotation, clamped or
+// NaN coordinates mixed in one patch) is read from a box of its own, its
+// 8 rows from its origin: every window is exact whatever the coordinates.
+// The products are exact bf16 products summed in fp32, as in the plain
+// version up to summation order (and as the TPU's MXU dot).
 //
-// probe_row is a probe build of the same stage (the TPU kernel's phase
-// probes, scripts/dev/corr_variants.py): it stops the pipeline after one
-// phase (load, convert, shift, multiply, dot) of one window row.
+// fp32 rings: the per-window-row stage (window_taps), CUDA-core FMAs.
+// Tensor cores would take fp32 as TF32 and break the fp32 engine's
+// agreement with the CPU engine; fp32 serves MIXED_PRECISION=False only.
+// One warp task is one window row (8 taps x 128 channels, 1024 contiguous
+// values). Lane l reads the 16-byte chunks j = l + 32k (k < 4), which are
+// tap (l >> 4) + 2k, channels 8 * (l & 15) .. + 8, and half-warp shuffles
+// reduce the per-channel products.
+//
+// probe_row is a probe build of the fp32-style stage (the TPU kernel's
+// phase probes, scripts/dev/corr_variants.py): it stops the pipeline after
+// one phase (load, convert, shift, multiply, dot) of one window row. It
+// ports the TPU probes' fixed semantics and does not mirror the box stage.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -157,14 +183,255 @@ __device__ __forceinline__ void window_taps(
   }
 }
 
-// Bilinear blend of one window's 8x8 taps t at blended position (dy, dx):
-// y first, then x, in fp32.
-__device__ __forceinline__ float blend(const float* t, float fx, float fy,
-                                       int dy, int dx) {
-  const float ty0 = (1.f - fy) * t[dy * D + dx] + fy * t[(dy + 1) * D + dx];
-  const float ty1 = (1.f - fy) * t[dy * D + dx + 1]
-                    + fy * t[(dy + 1) * D + dx + 1];
+// Bilinear blend of one window's 8x8 taps t (row stride ld) at blended
+// position (dy, dx): y first, then x, in fp32.
+__device__ __forceinline__ float blend(const float* t, int ld, float fx,
+                                       float fy, int dy, int dx) {
+  const float ty0 = (1.f - fy) * t[dy * ld + dx] + fy * t[(dy + 1) * ld + dx];
+  const float ty1 = (1.f - fy) * t[dy * ld + dx + 1]
+                    + fy * t[(dy + 1) * ld + dx + 1];
   return (1.f - fx) * ty0 + fx * ty1;
+}
+
+// --- the box stage (bf16) ---------------------------------------------------
+
+constexpr int BOX_W = 16;         // box columns: two mma n-tiles of pixels
+constexpr int BOX_H = 2 * D;      // most box rows
+constexpr int TAP_LD = D * D + 4; // floats per window's taps; the pad
+                                  // spreads one store's lanes over the banks
+
+// One warp's shared memory for box_taps, with NS box row buffers (NS - 1
+// rows in flight while one multiplies); 16-byte aligned, so the row
+// buffers of every warp in an array are (cp.async, ldmatrix).
+template <int NS>
+struct __align__(16) BoxWarp {
+  __nv_bfloat16 row[NS][BOX_W * C]; // box row buffers, 16-byte chunks
+                                    // swizzled (swz)
+  float taps[P2 * TAP_LD];          // window p's taps (ty, tx) at p * TAP_LD
+  float fx[P2], fy[P2];             // fractional offsets per window
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes < 16 zero-fills.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l & 7 of matrix l >> 3. .trans transposes each matrix.
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+// Element offset of 16-byte chunk ``chunk`` of row ``row`` in a buffer of
+// ``chunks`` (a multiple of 8) chunks per row, the chunk index XORed with
+// row & 7: ldmatrix's 8 rows at one chunk land in 8 different bank groups.
+__device__ __forceinline__ int swz(int row, int chunk, int chunks) {
+  return (row * chunks + (chunk ^ (row & 7))) * 8;
+}
+
+// The mma A fragments of one edge's 9 patch rows g (9 x C, rows 9-15
+// zero) for the 8 k-steps of 16 channels.
+__device__ __forceinline__ void patch_frags(const __nv_bfloat16* g,
+                                            unsigned a[C / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const unsigned* r0 = reinterpret_cast<const unsigned*>(g + gr * C);
+  const unsigned* r8 = reinterpret_cast<const unsigned*>(g + 8 * C);
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+    const int w = ks * 8 + (lane & 3);      // channel pair 16 ks + 2 (l & 3)
+    a[ks][0] = r0[w];
+    a[ks][1] = gr == 0 ? r8[w] : 0u;
+    a[ks][2] = r0[w + 4];
+    a[ks][3] = gr == 0 ? r8[w + 4] : 0u;
+  }
+}
+
+// One box pass: the products of the 9 patch rows with box rows
+// [0, nrows) x columns [0, ncols) from ``box`` (ring row stride Wp pixels),
+// each stored as tap (r - oy, px - ox) of window p where that lies in the
+// window; lane p < 9 holds window p's (oy, ox) in this box. only_p < 0
+// stores every window's taps, otherwise only that one's. Only the ncols
+// (<= 16) pixels the windows read are loaded. Every step commits one
+// cp.async group, empty past the last row, so one wait depth serves every
+// step.
+template <int NS>
+__device__ __forceinline__ void box_pass(const unsigned a[C / 16][4],
+                                         const __nv_bfloat16* box, int Wp,
+                                         int nrows, int ncols, int only_p,
+                                         int oy, int ox, BoxWarp<NS>& w) {
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int t = lane & 3;
+  // this lane's accumulator rows are windows gr and (lane < 4) 8
+  const int oy_g = __shfl_sync(0xffffffffu, oy, gr);
+  const int ox_g = __shfl_sync(0xffffffffu, ox, gr);
+  const int oy_8 = __shfl_sync(0xffffffffu, oy, 8);
+  const int ox_8 = __shfl_sync(0xffffffffu, ox, 8);
+  const bool st_g = only_p < 0 || only_p == gr;
+  const bool st_8 = gr == 0 && (only_p < 0 || only_p == 8);
+  auto load_row = [&](int r) {
+    if (r < nrows) {
+      const __nv_bfloat16* src = box + (long long)r * Wp * C;
+      __nv_bfloat16* dst = w.row[r % NS];
+#pragma unroll
+      for (int i = 0; i < BOX_W * C / 8 / 32; ++i) {
+        const int j = lane + 32 * i;        // 16-byte chunk of the row
+        if ((j >> 4) < ncols)               // its pixel
+          cp_async16(dst + swz(j >> 4, j & 15, C / 8), src + 8 * j);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int r = 0; r < NS - 1; ++r) load_row(r);
+  for (int r = 0; r < nrows; ++r) {
+    load_row(r + NS - 1);           // into the buffer row r - 1 used
+    cp_async_wait<NS - 1>();        // row r has landed
+    __syncwarp();
+    const __nv_bfloat16* buf = w.row[r % NS];
+    // lane l addresses pixel (l & 7) + 8 (l >> 4), chunk 2 ks + (l >> 3 & 1)
+    const int px = (lane & 7) + 8 * (lane >> 4);
+    const int half = (lane >> 3) & 1;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks) {
+      unsigned b[4];
+      ldmatrix_x4(b, buf + swz(px, 2 * ks + half, C / 8));
+      mma_bf16(acc[0], a[ks], b[0], b[1]);
+      if (ncols > 8) mma_bf16(acc[1], a[ks], b[2], b[3]);
+    }
+    const int ty_g = r - oy_g;
+    const int ty_8 = r - oy_8;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = nt * 8 + 2 * t + h;
+        if (st_g && (unsigned)ty_g < D && (unsigned)(col - ox_g) < D)
+          w.taps[gr * TAP_LD + ty_g * D + col - ox_g] = acc[nt][h];
+        if (st_8 && (unsigned)ty_8 < D && (unsigned)(col - ox_8) < D)
+          w.taps[8 * TAP_LD + ty_8 * D + col - ox_8] = acc[nt][2 + h];
+      }
+    }
+    __syncwarp();                   // the buffer is refilled next step
+  }
+}
+
+// The taps of the 9 windows of one edge at one level into w.taps, and
+// their fractions (w.fx, w.fy). fm is the edge's frame in the ring
+// (Hp x Wp x C), c its coords (2, 9), scaled by ``scale`` for this level.
+//
+// The plan (window_boxes in ops/corr_cuda.py): y0 = min by, x0 =
+// min(min bx, Wp - 16), nrows = min(max by - y0 + 8, 16), ncols =
+// min(max bx - x0 + 8, 16); window p fits when bx_p - x0 <= 8 and
+// by_p - y0 <= 8. The box lies inside the map: by <= Hp - 8, bx <= Wp - 8
+// and Wp >= 16. A window that does not fit gets its own box: rows
+// [by_p, by_p + 8), columns [px0, bx_p + 8) with px0 = min(bx_p, Wp - 16).
+template <int NS>
+__device__ __forceinline__ void level_taps(const unsigned a[C / 16][4],
+                                           const __nv_bfloat16* fm,
+                                           const float* c, float scale,
+                                           int Hp, int Wp, BoxWarp<NS>& w) {
+  const int lane = threadIdx.x & 31;
+  const bool pix = lane < P2;
+  int bx = 0, by = 0;
+  if (pix) {
+    float fx, fy;
+    window_origin(c[lane] * scale, c[P2 + lane] * scale, Hp, Wp, bx, by,
+                  fx, fy);
+    w.fx[lane] = fx;
+    w.fy[lane] = fy;
+  }
+  int x0 = pix ? bx : Wp, y0 = pix ? by : Hp;
+  int xmax = pix ? bx : 0, ymax = pix ? by : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x0 = min(x0, __shfl_xor_sync(0xffffffffu, x0, o));
+    y0 = min(y0, __shfl_xor_sync(0xffffffffu, y0, o));
+    xmax = max(xmax, __shfl_xor_sync(0xffffffffu, xmax, o));
+    ymax = max(ymax, __shfl_xor_sync(0xffffffffu, ymax, o));
+  }
+  x0 = min(x0, Wp - BOX_W);
+  const int nrows = min(ymax - y0 + D, BOX_H);
+  const int ncols = min(xmax - x0 + D, BOX_W);
+  const bool fits = bx - x0 <= D && by - y0 <= D;
+  const unsigned own = __ballot_sync(0xffffffffu, pix && !fits);
+  if (own != (1u << P2) - 1)        // a window left out stores no tap
+    box_pass(a, fm + ((long long)y0 * Wp + x0) * C, Wp, nrows, ncols, -1,
+             fits ? by - y0 : BOX_H, bx - x0, w);
+  for (unsigned m = own; m; m &= m - 1) {
+    const int p = __ffs(m) - 1;
+    const int pbx = __shfl_sync(0xffffffffu, bx, p);
+    const int pby = __shfl_sync(0xffffffffu, by, p);
+    const int px0 = min(pbx, Wp - BOX_W);
+    box_pass(a, fm + ((long long)pby * Wp + px0) * C, Wp, D,
+             pbx - px0 + D, p, 0, pbx - px0, w);
+  }
+  __syncwarp();
+}
+
+// box_taps: one warp's edge at NL levels (level 1 samples c / 4 in the
+// second ring). g is the edge's 9 patch rows (9 x C), f its ring slot, c
+// its coords (2, 9). sink(k, v) takes each blended feature v in the raw
+// (level, p, dy, dx) order, k < NL * 441, each from one lane.
+template <int NL, int NS, typename Sink>
+__device__ __forceinline__ void box_taps(
+    const __nv_bfloat16* g, const __nv_bfloat16* fmap1,
+    const __nv_bfloat16* fmap2, int f, const float* c, int Hp1, int Wp1,
+    int Hp2, int Wp2, BoxWarp<NS>& w, Sink sink) {
+  const int lane = threadIdx.x & 31;
+  unsigned a[C / 16][4];
+  patch_frags(g, a);
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    const int Hp = l == 0 ? Hp1 : Hp2;
+    const int Wp = l == 0 ? Wp1 : Wp2;
+    const __nv_bfloat16* fm =
+        (l == 0 ? fmap1 : fmap2) + (long long)f * Hp * Wp * C;
+    level_taps(a, fm, c, l == 0 ? 1.f : 0.25f, Hp, Wp, w);
+    for (int i = lane; i < P2 * DB * DB; i += 32) {
+      const int p = i / (DB * DB);
+      const int dy = (i % (DB * DB)) / DB;
+      const int dx = i % DB;
+      sink(l * P2 * DB * DB + i,
+           blend(&w.taps[p * TAP_LD], D, w.fx[p], w.fy[p], dy, dx));
+    }
+    __syncwarp();                   // the next level rewrites the taps
+  }
 }
 
 // The phase probes, in pipeline order.

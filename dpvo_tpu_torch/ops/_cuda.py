@@ -134,14 +134,17 @@ def check(code: int, name: str):
                            f"cudaError {code}")
 
 
-def require(t: torch.Tensor, name: str, dtype, shape=None):
-    """Wrapper-side argument checks for a kernel input on the card."""
+def require(t: torch.Tensor, name: str, dtype, shape=None, aligned=False):
+    """Wrapper-side argument checks for a kernel input on the card;
+    ``aligned``: the kernel reads it in 16-byte chunks."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
     if shape is not None:
         if len(shape) != t.dim() or any(
                 s is not None and s != d for s, d in zip(shape, t.shape)):

@@ -12,6 +12,10 @@ Counterpart of ``dpvo_tpu/ops/corr_pallas.py``:
 - ``corr_probe`` (D3, the same source): K1's window stage stopped after one
   phase, ``scripts/dev/corr_variants.py:probe_variant``.
 
+On bf16 rings the kernels take each patch's 9 windows at a level from one
+box of ring rows read once (``window_boxes`` is the plan, in Python); fp32
+rings keep the per-window-row stage.
+
 Feature rings are stored zero-padded (``pad_fmap``), so every 8x8 tap
 window is an in-bounds read and out-of-image taps read zeros.  The kernels
 take edges in table order with a ring slot per edge (``ff_rows``): no frame
@@ -30,6 +34,7 @@ the engine reads it at call time, runs K2 at 13 and K1 in the layout of
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -116,18 +121,26 @@ def v12_row_map():
     return _lane_row_map(DW)
 
 
+@functools.lru_cache(maxsize=None)
+def _layout_rows(in_dim, device):
+    """The row index of ``raw_enc_kernel``'s layout of width ``in_dim`` on
+    ``device``, built once per process (the engine asks at every update).
+    Callers only index with it."""
+    maps = {2 * RAW_DIM: raw_to_ref_perm, V10_DIM: v10_row_map,
+            V12_DIM: v12_row_map}
+    if in_dim not in maps:
+        raise ValueError(f"no corr feature layout of width {in_dim}")
+    return torch.as_tensor(maps[in_dim](), device=device)
+
+
 def raw_enc_kernel(kernel, in_dim=2 * RAW_DIM):
     """(2*RAW_DIM, DIMo) corr1 kernel in (in, out) layout with reference
     row order -> the rows of a kernel feature layout of width ``in_dim``:
     882 (raw), 1152 (v10) or 2304 (v12); dead lanes get a zero row."""
-    if in_dim == 2 * RAW_DIM:
-        rows = raw_to_ref_perm()
-    elif in_dim in (V10_DIM, V12_DIM):
-        rows = v10_row_map() if in_dim == V10_DIM else v12_row_map()
+    rows = _layout_rows(in_dim, kernel.device)
+    if in_dim != 2 * RAW_DIM:
         kernel = torch.cat([kernel, kernel.new_zeros((1, kernel.shape[1]))])
-    else:
-        raise ValueError(f"no corr feature layout of width {in_dim}")
-    return kernel[torch.as_tensor(rows, device=kernel.device)].contiguous()
+    return kernel[rows].contiguous()
 
 
 def _window_origin(c, Hp, Wp):
@@ -141,6 +154,41 @@ def _window_origin(c, Hp, Wp):
     bx = torch.nan_to_num(bx_f + (PAD - R), nan=0.0).clamp(0, Wp - D).long()
     by = torch.nan_to_num(by_f + (PAD - R), nan=0.0).clamp(0, Hp - D).long()
     return bx, by, cx - bx_f, cy - by_f
+
+
+def window_boxes(coords, Hp, Wp):
+    """The box plan of the bf16 kernels' window stage
+    (``csrc/corr_window.cuh``, ``level_taps``), per (edge, level).
+
+    coords  (E, 2, 3, 3) level-1 pixel coords (unpadded; numpy or torch)
+    Hp, Wp  sequences of the padded map dims, one per level; level l
+            samples coords / 4**l
+    -> dict of torch tensors: ``x0``, ``y0``, ``nrows``, ``ncols`` (E, L)
+    int64, the box of rows [y0, y0 + nrows) and columns [x0, x0 + ncols)
+    of the padded map; ``window_fits`` (E, L, 9) whether each 8x8 window
+    lies in it; ``fits`` (E, L) whether all 9 do.  The box starts at the
+    windows' smallest origin (x0 moved left so 16 columns stay inside the
+    map) and spans at most 16 rows and 16 columns; a window that does not
+    fit is read from a box of its own, its 8 rows from its origin and its
+    columns from min(bx, Wp - 16) to bx + 8.
+    """
+    c = torch.as_tensor(coords, dtype=torch.float32)
+    out = {k: [] for k in ("x0", "y0", "nrows", "ncols", "window_fits")}
+    for level, (H, W) in enumerate(zip(Hp, Wp)):
+        bx, by, _, _ = _window_origin(c * 0.25 ** level, H, W)
+        y0 = by.min(1).values
+        x0 = torch.clamp(bx.min(1).values, max=W - DW)
+        out["x0"].append(x0)
+        out["y0"].append(y0)
+        out["nrows"].append(torch.clamp(by.max(1).values - y0 + D,
+                                        max=2 * D))
+        out["ncols"].append(torch.clamp(bx.max(1).values - x0 + D,
+                                        max=DW))
+        out["window_fits"].append((bx - x0[:, None] <= D)
+                                  & (by - y0[:, None] <= D))
+    out = {k: torch.stack(v, 1) for k, v in out.items()}
+    out["fits"] = out["window_fits"].all(-1)
+    return out
 
 
 def _window_pixels(fmap, ff, bx, by, width):
@@ -272,15 +320,19 @@ def corr_enc(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded, coords,
     Fn, Hp1, Wp1, _ = fmap1_padded.shape
     _, Hp2, Wp2, _ = fmap2_padded.shape
     DIMo = w_raw.shape[1]
-    _cuda.require(g_all, "g_all", dt, (K, P2, C))
+    _cuda.require(g_all, "g_all", dt, (K, P2, C), aligned=True)
     _cuda.require(kk_rows, "kk_rows", torch.int32, (E,))
-    _cuda.require(w_raw, "w_raw", dt, (2 * RAW_DIM, DIMo))
-    _cuda.require(fmap1_padded, "fmap1_padded", dt, (Fn, Hp1, Wp1, C))
-    _cuda.require(fmap2_padded, "fmap2_padded", dt, (Fn, Hp2, Wp2, C))
+    _cuda.require(w_raw, "w_raw", dt, (2 * RAW_DIM, DIMo), aligned=True)
+    _cuda.require(fmap1_padded, "fmap1_padded", dt, (Fn, Hp1, Wp1, C),
+                  aligned=True)
+    _cuda.require(fmap2_padded, "fmap2_padded", dt, (Fn, Hp2, Wp2, C),
+                  aligned=True)
     _cuda.require(coords, "coords", torch.float32, (E, 2, 3, 3))
     _cuda.require(ff_rows, "ff_rows", torch.int32, (E,))
-    if min(Hp1, Wp1, Hp2, Wp2) < D:
-        raise ValueError("padded feature maps must be at least 8x8")
+    _check_maps(dt, (Hp1, Wp1), (Hp2, Wp2))
+    if dt == torch.bfloat16 and (DIMo <= 0 or DIMo % 16):
+        raise ValueError(f"corr_enc on bf16 needs a positive multiple of 16 "
+                         f"output columns (mma n-tile pairs), got {DIMo}")
     out = torch.empty((E, DIMo), dtype=dt, device=coords.device)
     code = getattr(_cuda.lib(), fn)(
         g_all.data_ptr(), kk_rows.data_ptr(), ff_rows.data_ptr(),
@@ -292,6 +344,16 @@ def corr_enc(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded, coords,
     return out
 
 
+def _check_maps(dtype, *hw):
+    """Map sizes the kernels take: every window inside, and on bf16 rings
+    a 16-column box row inside (``padded_hw`` gives at least 24)."""
+    if min(min(h, w) for h, w in hw) < D:
+        raise ValueError("padded feature maps must be at least 8x8")
+    if dtype == torch.bfloat16 and min(w for _, w in hw) < DW:
+        raise ValueError(f"bf16 padded feature maps must be at least {DW} "
+                         f"columns wide")
+
+
 def _corr_raw(name, levels, layout, shape, g_pre, fmaps, coords, ff_rows,
               out_dtype, n_live_rows):
     """Launch csrc/corr_raw.cu at ``levels`` levels into ``layout``."""
@@ -301,12 +363,12 @@ def _corr_raw(name, levels, layout, shape, g_pre, fmaps, coords, ff_rows,
         raise ValueError(f"{name} supports float32 and bfloat16, not "
                          f"{dt} -> {out_dtype}")
     E = coords.shape[0]
-    _cuda.require(g_pre, "g_pre", dt, (E, P2, C))
+    _cuda.require(g_pre, "g_pre", dt, (E, P2, C), aligned=True)
     Fn = fmaps[0].shape[0]
     for i, fm in enumerate(fmaps, 1):
-        _cuda.require(fm, f"fmap{i}_padded", dt, (Fn, None, None, C))
-        if min(fm.shape[1:3]) < D:
-            raise ValueError("padded feature maps must be at least 8x8")
+        _cuda.require(fm, f"fmap{i}_padded", dt, (Fn, None, None, C),
+                      aligned=True)
+    _check_maps(dt, *(fm.shape[1:3] for fm in fmaps))
     _cuda.require(coords, "coords", torch.float32, (E, 2, 3, 3))
     _cuda.require(ff_rows, "ff_rows", torch.int32, (E,))
     n_live = E if n_live_rows is None else min(max(int(n_live_rows), 0), E)

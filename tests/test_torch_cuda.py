@@ -15,13 +15,20 @@ and rows past ``n_live_rows`` included.  The D3 phase probes
 (``corr_probe``) are held to theirs at 1e-5 of the largest output (fp32 sums
 of exact bf16 products), and the engine with lagged keyframe decisions on
 the card to the same engine on the CPU (structure exact, translation 5e-2,
-quaternion dot > 1-1e-3, the envelopes of the CPU parity tests).
+quaternion dot > 1-1e-3, the envelopes of the CPU parity tests).  The bf16
+kernels' box window stage is held to the plain versions on compact 3x3
+patches, on patches spread beyond one box (mixed in one block with compact
+ones, so the per-window path runs), on patches clamped at every border of
+the map and on NaN coordinates (NaN where the plain version is NaN, the
+other values within tolerance), at edge counts that leave the last block
+partial.
 """
 import numpy as np
 import pytest
 import torch
 
 from dpvo_tpu_torch.ops import _cuda, agg_cuda, corr_cuda
+from test_torch_corr_box import patch_coords
 
 pytestmark = pytest.mark.cuda
 
@@ -143,6 +150,67 @@ def test_corr_raw_kernels_zero_tail(dev):
     torch.cuda.synchronize()
     assert not cut[n:].any()
     _close(cut, want, F32)
+
+
+def _close_nan(got, want, rel):
+    """NaN exactly where the plain version is NaN; the rest within
+    ``rel`` of the largest finite plain value (fp32 out: atol 1e-4)."""
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    if not fin.any():
+        return
+    atol = 1e-4 if rel is None else rel * want[fin].abs().max().item()
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("E", [1, 33, 200])
+@pytest.mark.parametrize("kind", ["compact", "spread", "borders", "nan"])
+def test_bf16_box_stage_vs_plain(dev, kind, E):
+    """K2, K1 (raw, v10, v12) and K5 (raw, ref; fp32 out) on bf16 rings."""
+    g_all, kk, w_raw, f1, f2, _, ff = _corr_inputs(dev, BF16, E=E, seed=E)
+    coords = torch.as_tensor(patch_coords(kind, E, seed=E, h=32, w=48),
+                             device=dev)
+    got = corr_cuda.corr_enc(g_all, kk, w_raw, f1, f2, coords, ff)
+    want = corr_cuda.corr_enc_plain(g_all, kk, w_raw, f1, f2, coords, ff)
+    torch.cuda.synchronize()
+    _close_nan(got, want, 1e-2)
+    nan_rows = torch.isnan(coords).reshape(E, -1).any(1)
+    assert torch.isnan(got[nan_rows]).all()
+    assert torch.isfinite(got[~nan_rows]).all()
+    g_pre = g_all[kk.long()].contiguous()
+    for layout in ("raw", "v10", "v12"):
+        args = (g_pre, f1, f2, coords, ff, layout, BF16)
+        got = corr_cuda.corr_fused(*args)
+        want = corr_cuda.corr_fused_plain(*args)
+        torch.cuda.synchronize()
+        _close_nan(got, want, 1e-2)
+    for raw in (True, False):
+        args = (g_pre, f1, coords, ff, raw, F32)
+        got = corr_cuda.corr_single(*args)
+        want = corr_cuda.corr_single_plain(*args)
+        torch.cuda.synchronize()
+        _close_nan(got, want, None)
+
+
+@pytest.mark.parametrize("DIMo", [48, 400])
+def test_corr_enc_bf16_column_passes(dev, DIMo):
+    """Output widths below and above one 384-column pass."""
+    args = _corr_inputs(dev, BF16, E=70, DIMo=DIMo, seed=3)
+    got = corr_cuda.corr_enc(*args).float()
+    want = corr_cuda.corr_enc_plain(*args).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-2 * want.abs().max().item())
+
+
+def test_corr_enc_bf16_rejects_dimo(dev):
+    g_all, kk, w_raw, f1, f2, coords, ff = _corr_inputs(dev, BF16, E=8,
+                                                        DIMo=100)
+    before = _cuda.launches["corr_enc"]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        corr_cuda.corr_enc(g_all, kk, w_raw, f1, f2, coords, ff)
+    assert _cuda.launches["corr_enc"] == before
 
 
 def _segments(dev, E, D, n_groups, seed):

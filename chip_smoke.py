@@ -12,17 +12,26 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    card, at main-path shapes (480x640 frames, M=96, 36-frame rings,
    k_cap=4096) for the synchronous merge (6144 live edges), the lagged
    merge (14336) and the retain (45312) edge counts, with max error,
-   tolerance, times and bound: K2 corr_enc, K1 corr_fused (bf16, raw, v10
+   tolerance, times and bound (every kernel's and library call's time is
+   device time from a CUDA graph of 10-20 calls, the plain versions' back
+   to back): K2 corr_enc, K1 corr_fused (bf16, raw, v10
    and v12 layouts), K5 corr_single (level-1 ring, fp32 out, raw and
-   reference order), K3/K4 the segment sums, and at 6144 and 45312 the
-   five D3 probes (corr_probe, fp32 out of bf16 rings) beside K1 raw; at
-   each shape the share of (edge, level) tasks whose 9 windows fit one box
-   (``corr_cuda.window_boxes``) and, beside K2, K1 raw followed by the
-   cuBLAS (E, 882) x (882, 384) product (``unfused_ms``, a yardstick the
-   port never calls); then K2 and K1 (raw, v12) at 6144 edges with every
-   other patch spread 6x beyond one box, so the per-window path runs;
-   then the D3 path itself, ``scripts/dev/corr_variants_torch.py``'s probe
-   entry point at 6144 edges;
+   reference order), K3/K4 the segment sums (the back-to-back time of the
+   wrapper beside; K4 also exactly equal to the
+   row-order reference ``segment_sums_ordered``, and on three edge cases:
+   runs across every slice boundary, one group of all rows, no rows;
+   ``index_add_`` beside it), and at each shape the five D3 probes
+   (corr_probe, fp32 out of bf16 rings) beside K1 raw with each probe's
+   box fit share and box bytes per edge; at each shape the share of (edge,
+   level) tasks whose 9 windows fit one box (``corr_cuda.window_boxes``)
+   and, beside K2, K1 raw followed by the cuBLAS (E, 882) x (882, 384)
+   product (``unfused_ms``, a yardstick the port never calls); then K2 and
+   K1 (raw, v12) at 6144 edges with every other patch spread 6x beyond one
+   box, so the per-window path runs; then the D3 path itself,
+   ``scripts/dev/corr_variants_torch.py``'s probe entry point at 6144
+   edges (scattered pixels: the per-window path), each probe's time
+   beside K1 raw with its fit share, and each probe against its plain
+   version on those inputs;
 3. agreement: the fp32 engine with the kernels on the card against the
    same engine with the plain versions on the CPU, on 16 small frames
    (same seeded weights, scripted centroids, fixed depth), in the
@@ -145,8 +154,10 @@ def hmma_counts(lib_path):
 
 
 def time_ms(fn, reps, warm=2, windows=1):
-    """Device ms per call (CUDA events): the median over ``windows`` runs
-    of ``reps`` calls each, so one disturbed run does not set the number."""
+    """ms per call back to back (CUDA events around ``reps`` calls): the
+    median over ``windows`` runs, so one disturbed run does not set the
+    number.  For the plain versions, which synchronise with the host and
+    cannot be captured in a graph."""
     import torch
     for _ in range(warm):
         fn()
@@ -158,6 +169,38 @@ def time_ms(fn, reps, warm=2, windows=1):
         t0.record()
         for _ in range(reps):
             fn()
+        t1.record()
+        torch.cuda.synchronize()
+        runs.append(t0.elapsed_time(t1) / reps)
+    return sorted(runs)[len(runs) // 2]
+
+
+def graph_ms(fn, reps=10, windows=KERNEL_WINDOWS):
+    """Device ms per call with the host's launch time out of the way:
+    ``reps`` calls captured in one CUDA graph, replayed ``windows`` times
+    (median).  Every kernel's ``ms`` and every library call's time: for
+    kernels shorter than the Python wrapper's own time (K3, K4) back-to-back
+    calls would time the wrapper instead, and for the long ones the two
+    agree within the launch gaps."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(windows):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
         t1.record()
         torch.cuda.synchronize()
         runs.append(t0.elapsed_time(t1) / reps)
@@ -274,6 +317,11 @@ def raw_work(g_pre, fmaps, coords, ff, out):
 PROBE_READS = {"p_load": (1, True, 0), "p_convert": (16, True, 16),
                "p_roll": (1, False, 0), "p_mult_subl": (8, False, 16),
                "p_full_dot": (8, False, 16)}
+# the probes that run their operations on the CUDA cores in fp32; their
+# bound still counts the bf16 tensor-core peak, which computes bf16
+# products summed in fp32 exactly, and the fp32 CUDA-core figure is
+# printed beside it
+PROBE_CUDA_CORE = ("p_convert", "p_mult_subl")
 
 
 def probe_work(g_pre, fmaps, coords, ff, probe, out):
@@ -302,6 +350,50 @@ def segment_inputs(E, D, n_groups, dev, gen):
     return a, b, gid
 
 
+def check_segment_sums(vals, gid, g_cap):
+    """K4 against its plain version (TOL_SEG) and against the row-order
+    reference ``segment_sums_ordered`` (exactly): (max error, max error
+    against the reference, both hold)."""
+    import torch
+    from dpvo_tpu_torch.ops import agg_cuda
+    got = agg_cuda.segment_sums(vals, gid, g_cap)
+    want = agg_cuda.segment_sums_plain(vals, gid, g_cap)
+    ordered = agg_cuda.segment_sums_ordered(vals, gid, g_cap)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err_ord = (got - ordered).abs().max().item()
+    ok = (bool(torch.allclose(got, want, rtol=TOL_SEG[0], atol=TOL_SEG[1]))
+          and torch.equal(got, ordered))
+    return err, err_ord, ok
+
+
+def segment_edge_cases(dev, E, D, g_cap):
+    """K4 at E rows on its edge cases, each against both references: runs
+    of 16 rows whose heads sit 11 and 27 rows into every 32-row slice (so
+    every slice boundary lies inside a run), one group holding all E rows
+    (values of mean 1: a 14336-row sum that cancels would differ between
+    summation orders by more than TOL_SEG of the result), and no rows."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = torch.arange(E, device=dev)
+    head = (rows % 32 == 11) | (rows % 32 == 27) | (rows == 0)
+    cases = {"runs across every slice boundary":
+             ((torch.cumsum(head.int(), 0) - 1).int(), 0.0),
+             "one group of all rows":
+             (torch.zeros(E, dtype=torch.int32, device=dev), 1.0),
+             "no rows": (torch.zeros(0, dtype=torch.int32, device=dev), 0.0)}
+    for name, (gid, mean) in cases.items():
+        vals = torch.randn((len(gid), D), generator=gen, device=dev) + mean
+        err, err_ord, ok = check_segment_sums(vals, gid, g_cap)
+        log(f"[kernels] segment_sums {name} (E={len(gid)}, "
+            f"{int(gid.max()) + 1 if len(gid) else 0} groups): "
+            f"max_abs_err={err:.3e}; against the row-order reference "
+            f"{err_ord:.3e} (must be 0) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"segment_sums fails its edge case: {name}")
+
+
 # (live edges, target frames they read, patches they touch) of the engine
 # at 480x640, M=96: the merge regime with synchronous keyframing (8
 # keyframes, every patch linked to every frame), the merge regime's edge
@@ -309,7 +401,7 @@ def segment_inputs(E, D, n_groups, dev, gen):
 # (22-frame removal window, 13-frame patch lifetime)
 SHAPES = ((6144, 8, 8 * 96), (14336, 16, 16 * 96), (45312, 13, 23 * 96))
 E_MAIN = SHAPES[0][0]       # the shape of the merge drive's updates
-PROBE_SHAPES = (SHAPES[0][0], SHAPES[2][0])
+PROBE_SHAPES = tuple(E for E, _, _ in SHAPES)
 
 
 def phase_probes(results, E, g_pre, f1, f2, coords, ff):
@@ -321,24 +413,20 @@ def phase_probes(results, E, g_pre, f1, f2, coords, ff):
     line = [f"K1 raw {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f})"]
     for probe in PROBES:
         args = (g_pre, f1, f2, coords, ff, probe)
-        got = corr_cuda.corr_probe(*args)
-        want = corr_cuda.corr_probe_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        ok = (bool(torch.isfinite(got).all()) and scale > 0
-              and err <= TOL_PROBE * scale)
-        ms = time_ms(lambda: corr_cuda.corr_probe(*args), reps=10,
-                     windows=KERNEL_WINDOWS)
+        got, err, scale, ok = probe_error(args)
+        ms = graph_ms(lambda: corr_cuda.corr_probe(*args))
         plain_ms = time_ms(lambda: corr_cuda.corr_probe_plain(*args),
                            reps=3, warm=1)
         nbytes, nops = probe_work(g_pre, (f1, f2), coords, ff, probe, got)
         b_ms, b_by = bound(nbytes, nops, "bf16")
+        core = (f" (fp32 CUDA cores: {bound(nbytes, nops, 'f32')[0]:.4f})"
+                if probe in PROBE_CUDA_CORE else "")
         log(f"[kernels] corr_probe {probe} E={E}: max_abs_err={err:.3e} "
             f"max|plain|={scale:.3e} tol={TOL_PROBE}*max|plain| "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GOP) "
-            f"library_ms=none (no single call) {'OK' if ok else 'FAIL'}")
+            f"({b_by}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GOP){core} "
+            f"library_ms=none (no single call); "
+            f"{fit_share(coords, f1, f2, probe)} {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"corr_probe ({probe}) disagrees with its "
                              f"plain version at E={E}")
@@ -349,10 +437,40 @@ def phase_probes(results, E, g_pre, f1, f2, coords, ff):
     log(f"[probe] E={E} ms: " + "; ".join(line))
 
 
+def probe_error(args):
+    """One probe call against its plain version: (output, max error,
+    max|plain|, within TOL_PROBE)."""
+    import torch
+    from dpvo_tpu_torch.ops import corr_cuda
+    got = corr_cuda.corr_probe(*args)
+    want = corr_cuda.corr_probe_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = (bool(torch.isfinite(got).all()) and scale > 0
+          and err <= TOL_PROBE * scale)
+    return got, err, scale, ok
+
+
+def check_probes(key, g_pre, f1, f2, coords, ff):
+    """Every probe against its plain version on these inputs; fails on a
+    disagreement."""
+    errs = []
+    for probe in PROBES:
+        _, err, scale, ok = probe_error((g_pre, f1, f2, coords, ff, probe))
+        errs.append(f"{probe} {err:.3e} (max|plain| {scale:.3e})")
+        if not ok:
+            raise SystemExit(f"corr_probe ({probe}) disagrees with its "
+                             f"plain version at {key}")
+    log(f"[probe] {key}: max_abs_err " + ", ".join(errs)
+        + f" within {TOL_PROBE}*max|plain| OK")
+
+
 def probe_path(E=E_MAIN):
     """D3's own path: the probe entry point of
     scripts/dev/corr_variants_torch.py at E edges, its launch counts zeroed
-    just before and read just after."""
+    just before and read just after; then, on the same inputs, each probe
+    against its plain version and each probe's fit share."""
     from dpvo_tpu_torch.ops import _cuda
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"
                            / "dev"))
@@ -367,26 +485,39 @@ def probe_path(E=E_MAIN):
     if sorted(launches) != sorted(f"corr_probe.{p}" for p in PROBES):
         raise SystemExit(f"the probe path did not launch every probe: "
                          f"{launches}")
+    g, f1, f2, coords, ff = corr_variants_torch.make_inputs(E)
+    check_probes(f"the probe path, E={E}", g, f1, f2, coords, ff)
+    for probe in PROBES:
+        log(f"[probe] the probe path, E={E}: {probe} {times[probe]:.4f} ms "
+            f"beside K1 raw {times['k1_raw']:.4f}; "
+            + fit_share(coords, f1, f2, probe))
+    log(f"[probe] the probe path, E={E}: K1's plan "
+        + fit_share(coords, f1, f2))
     return launches
 
 
-def fit_share(coords, f1, f2):
+def fit_share(coords, f1, f2, probe=None):
     """The share of (edge, level) tasks whose 9 windows fit one box, per
     level, the number of windows read from a box of their own, and the
     ring bytes per edge the plan reads (box rows of ncols pixels, 8 rows
     for a window on its own box): ``corr_cuda.window_boxes``, the bf16
-    kernels' plan."""
+    kernels' plan, or with ``probe`` that D3 probe's (``PROBE_PLAN``)."""
     from dpvo_tpu_torch.ops import corr_cuda
     c = coords.detach().cpu()
     fmaps = (f1, f2)
+    aligned, own_cols = corr_cuda.PROBE_PLAN.get(probe, (False, None))
     b = corr_cuda.window_boxes(c, tuple(f.shape[1] for f in fmaps),
-                               tuple(f.shape[2] for f in fmaps))
+                               tuple(f.shape[2] for f in fmaps), aligned,
+                               1 if probe is None else corr_cuda.PROBE_MIN_FIT)
     share = b["fits"].double().mean(0).tolist()
     own = ~b["window_fits"]
     pixels = (b["nrows"] * b["ncols"] * own.logical_not().any(-1)).sum()
     for level, f in enumerate(fmaps):
-        bx = corr_cuda._window_origin(c * 0.25 ** level, *f.shape[1:3])[0]
-        cols = bx - bx.clamp(max=f.shape[2] - corr_cuda.DW) + corr_cuda.D
+        if own_cols is None:        # K1 / K2: from min(bx, Wp - 16)
+            bx = b["wx"][:, level]
+            cols = bx - bx.clamp(max=f.shape[2] - corr_cuda.DW) + corr_cuda.D
+        else:
+            cols = own_cols
         pixels += (corr_cuda.D * cols * own[:, level]).sum()
     kb = float(pixels) * f1.shape[-1] * f1.element_size() / len(c) / 1e3
     return (f"fit one box: level 1 {share[0]:.4%}, level 2 {share[1]:.4%}; "
@@ -406,8 +537,7 @@ def check_enc(results, key, args):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err <= TOL_K2 * scale
-    ms = time_ms(lambda: corr_cuda.corr_enc(*args), reps=10,
-                 windows=KERNEL_WINDOWS)
+    ms = graph_ms(lambda: corr_cuda.corr_enc(*args))
     plain_ms = time_ms(lambda: corr_cuda.corr_enc_plain(*args), reps=3,
                        warm=1)
     nbytes, nops = corr_work(*args)
@@ -434,9 +564,9 @@ def unfused_line(key, args, enc_ms):
     g_all, kk, w_raw, f1, f2, coords, ff = args
     E = coords.shape[0]
     g_pre = g_all[kk.long()]
-    ms = time_ms(lambda: corr_cuda.corr_fused(
+    ms = graph_ms(lambda: corr_cuda.corr_fused(
         g_pre, f1, f2, coords, ff, "raw", torch.bfloat16).reshape(E, -1)
-        @ w_raw, reps=10, windows=KERNEL_WINDOWS)
+        @ w_raw)
     log(f"[kernels] corr_enc {key}: unfused_ms={ms:.4f} (K1 raw + cuBLAS "
         f"({E}, 882) x (882, {w_raw.shape[1]}); yardstick only) against "
         f"K2 {enc_ms:.4f}")
@@ -464,7 +594,7 @@ def check_raw(results, key, name, layout, g_pre, f1, f2, coords, ff):
     scale = want.float().abs().max().item()
     tol = TOL_K2 * scale if name == "corr_fused" else TOL_F32
     ok = bool(torch.isfinite(got).all()) and err <= tol
-    ms = time_ms(lambda: kernel(*kargs), reps=10, windows=KERNEL_WINDOWS)
+    ms = graph_ms(lambda: kernel(*kargs))
     plain_ms = time_ms(lambda: plain(*kargs), reps=3, warm=1)
     nbytes, nops = raw_work(g_pre, fmaps, coords, ff, got)
     b_ms, b_by = bound(nbytes, nops, "bf16")
@@ -523,7 +653,9 @@ def phase_kernels(dev):
         err = (got - want).abs().max().item()
         ok = bool(torch.allclose(got, want, rtol=TOL_SEG[0],
                                  atol=TOL_SEG[1]))
-        ms = time_ms(lambda: agg_cuda.segment_softmax_sums(
+        ms = graph_ms(lambda: agg_cuda.segment_softmax_sums(
+            gate, val, shift, gid, g_cap), reps=20)
+        b2b_ms = time_ms(lambda: agg_cuda.segment_softmax_sums(
             gate, val, shift, gid, g_cap), reps=20, windows=KERNEL_WINDOWS)
         plain_ms = time_ms(lambda: agg_cuda.segment_softmax_sums_plain(
             gate, val, shift, gid, g_cap), reps=10)
@@ -532,8 +664,8 @@ def phase_kernels(dev):
         b_ms, b_by = bound(nbytes, 5 * E * D_agg, "f32")
         log(f"[kernels] segment_softmax_sums E={E}: max_abs_err={err:.3e} "
             f"tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"{'OK' if ok else 'FAIL'}")
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+            f"back to back {b2b_ms:.4f} {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("segment_softmax_sums disagrees with its plain "
                              f"version at E={E}")
@@ -543,33 +675,35 @@ def phase_kernels(dev):
 
         # K4: BA coupling sums (f32), [A | C | u] with n_cap=16
         vals, _, gid = segment_inputs(E, D_ba, n_patches, dev, gen)
-        got = agg_cuda.segment_sums(vals, gid, k_cap + 1)
-        want = agg_cuda.segment_sums_plain(vals, gid, k_cap + 1)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, rtol=TOL_SEG[0],
-                                 atol=TOL_SEG[1]))
-        ms = time_ms(lambda: agg_cuda.segment_sums(vals, gid, k_cap + 1),
-                     reps=20, windows=KERNEL_WINDOWS)
+        err, err_ord, ok = check_segment_sums(vals, gid, k_cap + 1)
+        ms = graph_ms(lambda: agg_cuda.segment_sums(vals, gid, k_cap + 1),
+                      reps=20)
+        b2b_ms = time_ms(lambda: agg_cuda.segment_sums(vals, gid, k_cap + 1),
+                         reps=20, windows=KERNEL_WINDOWS)
         plain_ms = time_ms(lambda: agg_cuda.segment_sums_plain(
             vals, gid, k_cap + 1), reps=10)
         G = agg_cuda.padded_groups(k_cap + 1)
         gid_l = gid.long()
-        lib_ms = time_ms(lambda: torch.zeros(
-            (G, D_ba), device=dev).index_add_(0, gid_l, vals), reps=20,
-            windows=KERNEL_WINDOWS)
+        def library():
+            return torch.zeros((G, D_ba), device=dev).index_add_(0, gid_l,
+                                                                 vals)
+        lib_ms = graph_ms(library, reps=20)
+        lib_b2b_ms = time_ms(library, reps=20, windows=KERNEL_WINDOWS)
         nbytes = E * D_ba * 4 + E * 4 + G * D_ba * 4
         b_ms, b_by = bound(nbytes, E * D_ba, "f32")
         log(f"[kernels] segment_sums E={E}: max_abs_err={err:.3e} "
-            f"tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]} ms={ms:.4f} "
+            f"tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]}; against the "
+            f"row-order reference {err_ord:.3e} (must be 0) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms(index_add_)={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) {'OK' if ok else 'FAIL'}")
+            f"bound_ms={b_ms:.4f} ({b_by}); back to back {b2b_ms:.4f}, "
+            f"index_add_ {lib_b2b_ms:.4f} {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"segment_sums disagrees with its plain version "
-                             f"at E={E}")
+                             f"or the row-order reference at E={E}")
         results.setdefault("segment_sums", {})[E] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
+    segment_edge_cases(dev, SHAPES[1][0], D_ba, k_cap + 1)
 
     # K2 and K1 with every other patch spread beyond one box
     E, n_frames, n_patches = SHAPES[0]

@@ -46,17 +46,26 @@
 // fractional part is NaN, and so are their output values.
 //
 // corr_probe_kernel<PROBE> replaces scripts/dev/corr_variants.py:
-// probe_variant (D3): the per-window-row stage on bf16 rings, stopped after
-// one phase (corr_window.cuh probe_row), one template instance per probe.
-// It keeps the TPU probes' semantics; K1's bf16 stage is now the box
-// stage, which the probes do not mirror. Like the TPU probe's constant
-// output block, only the last 16 edges (the last
-// TPU tile) are stored, fp32 (16, 2, 9, 8, 128) as (edge, level, pixel,
-// window row, lane); every other row's values feed a store guarded by
-// value == never, with never a NaN passed at run time, so no phase is dead
-// code and almost no output traffic is added. What bounds a probe: the
-// bytes of the window pixels it reads (one pixel column per row for load
-// and shift, 16 for convert, 8 for multiply and dot), as for K1.
+// probe_variant (D3): the box stage stopped after one phase (corr_window.cuh
+// probe_level), one template instance per probe. Like the TPU probe's
+// constant output block, only the last 16 edges (the last TPU tile) are
+// stored, fp32 (16, 2, 9, 8, 128) as (edge, level, pixel, window row,
+// lane); every other row's values feed a store guarded by value == never,
+// with never a NaN passed at run time, so no phase is dead code and almost
+// no output traffic is added. What bounds a probe: the bytes of the window
+// pixels it reads (one pixel column per row for load and shift, 16 for
+// convert, 8 for multiply and dot), as for K1. What the design does about
+// it: one warp per edge, EB_PROBE = 4 a block, as K1; each (edge, level)
+// streams the probe's box rows (K1's box for shift, multiply and dot; for
+// load and convert a box of up to 24 columns from the 8-aligned origin)
+// through a ring of 2-4 cp.async entries, then the rows of the windows that
+// do not fit back to back, several rows an entry (all 8 rows of a one-pixel
+// window), so a scattered patch keeps 2-5 entries in flight instead of
+// K1's 2 rows. The copies go through L1 (cp.async.ca, where K1's box stage
+// uses .cg): scattered windows of nearby patches overlap, and L1 serves
+// that overlap (PERF.md). The rings are small enough for 16 warps an
+// SM (12 for mult_subl).
+
 #include <type_traits>
 
 #include "corr_window.cuh"
@@ -300,6 +309,7 @@ int launch_in(int in_bf16, int out_bf16, const Args& a,
 }
 
 constexpr int PROBE_TILE = 16;    // edges of the TPU probe's output block
+constexpr int EB_PROBE = 4;       // edges per probe block, a warp each
 
 struct ProbeArgs {
   const __nv_bfloat16* g_pre;     // (E, 9, 128)
@@ -313,74 +323,62 @@ struct ProbeArgs {
 };
 
 template <int PROBE>
-__global__ void __launch_bounds__(NT) corr_probe_kernel(ProbeArgs a) {
-  __shared__ long long win[EB][2 * P2];   // element offset of origin bx
-  __shared__ int shift[EB][2 * P2];       // bx - x0, x0 the aligned origin
-  const int e0 = blockIdx.x * EB;
-  const int n_here = min(EB, a.E - e0);
-  for (int i = threadIdx.x; i < EB * 2 * P2; i += NT) {
-    const int e = i / (2 * P2);
-    const int lp = i % (2 * P2);
-    const int l = lp / P2;
-    const int p = lp % P2;
-    long long off = 0;
-    int r = 0;
-    if (e < n_here) {
-      const int edge = e0 + e;
-      float cx = a.coords[(size_t)edge * 2 * P2 + p];
-      float cy = a.coords[(size_t)edge * 2 * P2 + P2 + p];
-      if (l == 1) { cx *= 0.25f; cy *= 0.25f; }
-      const int Hp = l == 0 ? a.Hp1 : a.Hp2;
-      const int Wp = l == 0 ? a.Wp1 : a.Wp2;
-      int bx, by;
-      float fx, fy;
-      window_origin(cx, cy, Hp, Wp, bx, by, fx, fy);
-      r = bx - min((bx / 8) * 8, Wp - DW);
-      off = (((long long)a.ff[edge] * Hp + by) * Wp + bx) * C;
-    }
-    win[e][lp] = off;
-    shift[e][lp] = r;
-  }
-  __syncthreads();
-
+__global__ void __launch_bounds__(32 * EB_PROBE,
+                                  ProbePlan<PROBE>::blocks_per_sm)
+    corr_probe_kernel(ProbeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int we = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int edge = blockIdx.x * EB_PROBE + we;
+  if (edge >= a.E) return;                // the block syncs no more
+  ProbeWarp<PROBE>& w = reinterpret_cast<ProbeWarp<PROBE>*>(smem_raw)[we];
   const int first_stored = a.E - PROBE_TILE;
-  for (int task = threadIdx.x >> 5; task < n_here * 2 * P2 * D;
-       task += NT / 32) {
-    const int e = task / (2 * P2 * D);
-    const int lp = (task / D) % (2 * P2);
-    const int y = task % D;
-    const int l = lp / P2;
-    const int p = lp % P2;
-    const int edge = e0 + e;
-    const __nv_bfloat16* row = (l == 0 ? a.fmap1 : a.fmap2) + win[e][lp]
-                               + (long long)y * (l == 0 ? a.Wp1 : a.Wp2) * C;
-    float v[8];
-    probe_row<PROBE>(row - (long long)shift[e][lp] * C, row,
-                     a.g_pre + ((size_t)edge * P2 + p) * C, lane, v);
-    if (lane >= 16) continue;
-    if (edge >= first_stored) {
-      float4* o = reinterpret_cast<float4*>(
-          a.out + (((size_t)(edge - first_stored) * 2 * P2 + lp) * D + y) * C
-          + 8 * lane);
-      o[0] = make_float4(v[0], v[1], v[2], v[3]);
-      o[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-      bool hit = false;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        hit |= v[i] == a.never;
-        s += v[i];
-      }
-      if (hit) a.out[8 * lane] = s;
+  ProbeSink sink{edge >= first_stored
+                     ? a.out + (size_t)(edge - first_stored) * 2 * P2 * D * C
+                     : nullptr,
+                 a.never, false};
+  const __nv_bfloat16* g = a.g_pre + (size_t)edge * P2 * C;
+  unsigned af[C / 16][4];
+  float4 gv[P2];
+  if constexpr (PROBE == P_FULL_DOT) {
+    patch_frags(g, af);
+    if (sink.out) {                       // lanes 8 .. 127 of every row
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = lane; i < 2 * P2 * D * (C / 4 - 2); i += 32)
+        reinterpret_cast<float4*>(sink.out)
+            [(i / (C / 4 - 2)) * (C / 4) + 2 + i % (C / 4 - 2)] = z;
     }
   }
+  if constexpr (PROBE == P_MULT_SUBL) {
+#pragma unroll
+    for (int p = 0; p < P2; ++p) {
+      const uint2 u = *reinterpret_cast<const uint2*>(g + p * C + 4 * lane);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      gv[p] = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+  const int f = a.ff[edge];
+  const float* c = a.coords + (size_t)edge * 2 * P2;
+  probe_level<PROBE>(af, gv, a.fmap1 + (long long)f * a.Hp1 * a.Wp1 * C, c,
+                     1.f, a.Hp1, a.Wp1, 0, w, sink);
+  probe_level<PROBE>(af, gv, a.fmap2 + (long long)f * a.Hp2 * a.Wp2 * C, c,
+                     0.25f, a.Hp2, a.Wp2, 1, w, sink);
+  if (sink.hit) a.out[lane] = 0.f;
 }
 
 template <int PROBE>
 int launch_probe(const ProbeArgs& a, cudaStream_t stream) {
-  corr_probe_kernel<PROBE><<<(a.E + EB - 1) / EB, NT, 0, stream>>>(a);
+  constexpr int smem = EB_PROBE * sizeof(ProbeWarp<PROBE>);
+  if (a.Wp1 < DW || a.Wp2 < DW) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      corr_probe_kernel<PROBE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_probe_kernel<PROBE>
+      <<<(a.E + EB_PROBE - 1) / EB_PROBE, 32 * EB_PROBE, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -411,9 +409,10 @@ int dpvo_corr_raw(int levels, int in_bf16, int out_bf16, int layout,
 }
 
 // D3: probe (a Probe of corr_window.cuh) over E edges, E a positive
-// multiple of 16, on bf16 rings; writes out (16, 2, 9, 8, 128) fp32.
-// Returns the cudaGetLastError() code of the launch, cudaErrorInvalidValue
-// for an unknown probe or a bad E.
+// multiple of 16, on bf16 rings (16-byte aligned, at least 16 columns);
+// writes out (16, 2, 9, 8, 128) fp32. Returns the cudaGetLastError() code
+// of the launch, cudaErrorInvalidValue for an unknown probe, a bad E or a
+// ring too narrow.
 int dpvo_corr_probe(int probe, const void* g_pre, const void* ff,
                     const void* fmap1, const void* fmap2, const void* coords,
                     void* out, float never, int E, int Hp1, int Wp1, int Hp2,

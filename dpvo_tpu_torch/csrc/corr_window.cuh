@@ -33,10 +33,13 @@
 // tap (l >> 4) + 2k, channels 8 * (l & 15) .. + 8, and half-warp shuffles
 // reduce the per-channel products.
 //
-// probe_row is a probe build of the fp32-style stage (the TPU kernel's
-// phase probes, scripts/dev/corr_variants.py): it stops the pipeline after
-// one phase (load, convert, shift, multiply, dot) of one window row. It
-// ports the TPU probes' fixed semantics and does not mirror the box stage.
+// probe_level is a box stage of the phase probes' own (the TPU kernel's
+// probes, scripts/dev/corr_variants.py), beside box_pass, not a prefix of
+// it: one warp per edge streams the probe's box rows, then the rows of the
+// windows that do not fit, through a ring of cp.async entries 4-8 deep
+// (through L1), and stops each row after one phase (load, convert, shift,
+// multiply on the CUDA cores, or the tap dot on the tensor cores as
+// box_pass takes it).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -216,10 +219,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; src_bytes < 16 zero-fills.
+// cp_async16 goes through L2 only; cp_async16_l1 is cached in L1 too.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async16_l1(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -434,83 +442,350 @@ __device__ __forceinline__ void box_taps(
   }
 }
 
+// --- the phase probes (D3) on the box stage ------------------------------
+
 // The phase probes, in pipeline order.
 enum Probe { P_LOAD = 0, P_CONVERT = 1, P_ROLL = 2, P_MULT_SUBL = 3,
              P_FULL_DOT = 4, N_PROBES = 5 };
 
-// One window row of one probe, computed by a whole warp: ``aligned`` points
-// at the row's pixel at the 8-aligned origin x0 = min(8 * (bx / 8), Wp - DW)
-// that the TPU loads from, ``row`` at the true origin bx, ``g`` at the patch
-// pixel's 128 features. Lane l < 16 gets v = the row's outputs 8 * l .. + 8
-// (fp32; 128 per row):
-//   P_LOAD       pixel x0, one 16-byte chunk per lane;
-//   P_CONVERT    the sum over the 16 aligned pixels, in fp32;
-//   P_ROLL       pixel bx: the TPU's roll is only another address here;
-//   P_MULT_SUBL  the sum over the window's 8 pixels of pixel x g;
-//   P_FULL_DOT   the 8 taps g . pixel (no blend), then zeros.
-// Columns split between the half-warps (pixel h + 2k in half h), which one
-// shuffle adds; the dot reduces channels with half-warp shuffles as
-// window_taps does.
-template <int PROBE, typename T>
-__device__ __forceinline__ void probe_row(const T* aligned, const T* row,
-                                          const T* g, int lane, float v[8]) {
-  const int h = lane >> 4;
-  const int cb = 8 * (lane & 15);
+// A probe's box plan and ring. load and convert read each window row from
+// its 8-aligned origin xa = min(8 * (bx / 8), Wp - DW), DW pixels wide: their
+// box starts at the smallest xa and spans up to 24 columns, and a window
+// fits when xa - x0 is 0 or 8 (rows as in K1's plan). roll, mult_subl and
+// full_dot read from bx, 8 pixels wide: K1's plan (level_taps). A box is
+// read only when at least PROBE_MIN_FIT of the 9 windows fit it; otherwise
+// (scattered pixels) every window is read on its own, since a box read for
+// one or two windows costs more than their own rows. A window read on its
+// own gives ring entries of own_rows rows of own_w pixels from xa (the
+// pixels its probe reads: 1 for load and roll, 16 for convert, 8 for the
+// products), so a window's 8 rows take 1 (load, roll), 8 (convert) or 4
+// entries, and 2-5 entries stay in flight across windows.
+// ops/corr_cuda.py window_boxes(aligned=..., min_fit=...) and PROBE_PLAN
+// are the same plan in Python.
+constexpr int PROBE_MIN_FIT = 5;
+
+template <int PROBE>
+struct ProbePlan {
+  static constexpr bool aligned = PROBE == P_LOAD || PROBE == P_CONVERT;
+  static constexpr int width = aligned ? DW : D;      // pixels read from xa
+  static constexpr int box_w = aligned ? DW + D : BOX_W;
+  static constexpr int own_w = PROBE == P_CONVERT ? DW
+                               : (PROBE == P_LOAD || PROBE == P_ROLL) ? 1 : D;
+  static constexpr int own_rows = own_w == 1 ? D : (own_w == D ? 2 : 1);
+  // box rows buffered: a ring of 48 pixels a warp, so 4 blocks (16 warps)
+  // share an SM; mult_subl's registers allow 3 blocks, and it buffers 64
+  static constexpr int box_depth =
+      aligned ? 2 : (PROBE == P_MULT_SUBL ? 4 : 3);
+  static constexpr int blocks_per_sm = PROBE == P_MULT_SUBL ? 3 : 4;
+  static constexpr int ring_px = box_depth * box_w;   // pixels per warp
+  static constexpr int own_depth_max = ring_px / (own_rows * own_w);
+  static constexpr int own_depth = own_depth_max < 8 ? own_depth_max : 8;
+};
+
+// A window read on its own: its probe index and the element offset of its
+// first pixel (row by, column xa) in the level's ring map.
+struct OwnWindow {
+  long long off;
+  int p;
+  int pad;
+};
+
+// One warp's shared memory for a probe.
+template <int PROBE>
+struct __align__(16) ProbeWarp {
+  __nv_bfloat16 ring[ProbePlan<PROBE>::ring_px * C];  // swizzled entries
+  OwnWindow own[P2];
+};
+
+// Channels 4 lane .. +3 of pixel px of a ring entry (16-byte chunks
+// swizzled by swz, 16 a pixel), in fp32: a warp reads one pixel's 256 bytes.
+__device__ __forceinline__ float4 pix4(const __nv_bfloat16* e, int px) {
+  const int lane = threadIdx.x & 31;
+  const uint2 u = *reinterpret_cast<const uint2*>(
+      e + swz(px, lane >> 1, C / 8) + 4 * (lane & 1));
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// The sum of pixels px0 .. px0 + 7 of a ring entry, in order.
+__device__ __forceinline__ float4 sum8(const __nv_bfloat16* e, int px0) {
+  float4 s = pix4(e, px0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = 0.f;
-  if constexpr (PROBE == P_LOAD || PROBE == P_ROLL) {
-    if (h == 0) load8((PROBE == P_LOAD ? aligned : row) + cb, v);
-  } else if constexpr (PROBE == P_CONVERT) {
+  for (int k = 1; k < D; ++k) s = add4(s, pix4(e, px0 + k));
+  return s;
+}
+
+// Sum over pixels px0 .. px0 + 7 of pixel x g (fmaf, in order).
+__device__ __forceinline__ float4 mult8(const __nv_bfloat16* e, int px0,
+                                        float4 g) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int k = 0; k < DW / 2; ++k) {
-      float x[8];
-      load8(aligned + (h + 2 * k) * C + cb, x);
+  for (int k = 0; k < D; ++k) {
+    const float4 x = pix4(e, px0 + k);
+    s.x = fmaf(x.x, g.x, s.x);
+    s.y = fmaf(x.y, g.y, s.y);
+    s.z = fmaf(x.z, g.z, s.z);
+    s.w = fmaf(x.w, g.w, s.w);
+  }
+  return s;
+}
+
+// Entries [0, n) through a warp's ring of DEPTH entries, DEPTH - 1 in
+// flight while one is used, copied through L1 (cp.async.ca): windows of
+// nearby patches overlap, most of all at level 2, and L1 serves the
+// overlap. An entry is ROWS ring rows ``stride`` elements
+// apart, NPX pixels each from its first pixel (with ROWS = 1 the row may
+// hold fewer: npx), stored as pixels r * NPX + x. src(i, ptr, npx) names
+// entry i; use(i, entry) reads it. Every step commits one cp.async group,
+// empty past the last entry, so one wait depth serves every step.
+template <int DEPTH, int ROWS, int NPX, typename Src, typename Use>
+__device__ __forceinline__ void stream_entries(__nv_bfloat16* ring, int n,
+                                               long long stride, Src src,
+                                               Use use) {
+  constexpr int CH = C / 8;                   // 16-byte chunks a pixel
+  const int lane = threadIdx.x & 31;
+  auto load = [&](int i) {
+    if (i < n) {
+      const __nv_bfloat16* p;
+      int npx = NPX;
+      src(i, p, npx);
+      __nv_bfloat16* dst = ring + (i % DEPTH) * ROWS * NPX * C;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += x[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 16);
-  } else if constexpr (PROBE == P_MULT_SUBL) {
-    float gv[8];
-    load8(g + cb, gv);
-#pragma unroll
-    for (int k = 0; k < D / 2; ++k) {
-      float x[8];
-      load8(row + (h + 2 * k) * C + cb, x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = fmaf(x[i], gv[i], v[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 16);
-  } else {                                  // P_FULL_DOT
-    float gv[8];
-    load8(g + cb, gv);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float x[8];
-      load8(row + 8 * (lane + 32 * k), x);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[k] = fmaf(gv[c], x[c], acc[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
-    }
-    // half h holds taps h + 2k; lane 0 gathers all 8
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float odd = __shfl_xor_sync(0xffffffffu, acc[k], 16);
-      if (lane == 0) {
-        v[2 * k] = acc[k];
-        v[2 * k + 1] = odd;
+      for (int k = 0; k < (ROWS * NPX * CH + 31) / 32; ++k) {
+        const int j = lane + 32 * k;          // chunk of the entry
+        const int r = j / (NPX * CH);
+        const int c = j % (NPX * CH);
+        if (ROWS > 1 ? r < ROWS : c < npx * CH)
+          cp_async16_l1(dst + swz(r * NPX + c / CH, c % CH, CH),
+                        p + r * stride + 8 * c);
       }
     }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < DEPTH - 1; ++i) load(i);
+  for (int i = 0; i < n; ++i) {
+    load(i + DEPTH - 1);              // into the entry i - 1 used
+    cp_async_wait<DEPTH - 1>();       // entry i has landed
+    __syncwarp();
+    use(i, ring + (i % DEPTH) * ROWS * NPX * C);
+    __syncwarp();                     // the entry is refilled next step
   }
+}
+
+// Where a probe's values go: the edge's (2, 9, 8, 128) output block, or
+// (out == nullptr) a comparison with never, a NaN, so that every value is
+// computed and almost none is stored (the TPU probe's constant block).
+struct ProbeSink {
+  float* out;
+  float never;
+  bool hit;
+  __device__ __forceinline__ void put4(int l, int p, int ty, float4 v) {
+    if (out) {
+      reinterpret_cast<float4*>(out + ((l * P2 + p) * D + ty) * C)
+          [threadIdx.x & 31] = v;
+    } else {
+      hit |= (v.x == never) | (v.y == never) | (v.z == never)
+             | (v.w == never);
+    }
+  }
+  __device__ __forceinline__ void put1(int l, int p, int ty, int tx,
+                                       float v) {
+    if (out) out[((l * P2 + p) * D + ty) * C + tx] = v;
+    else hit |= v == never;
+  }
+};
+
+// The tap products of ring entry e's pixels 0 .. 15 (0 .. 7 when !WIDE)
+// with the 9 patch rows: acc[nt][0..1] for window gr = lane >> 2,
+// acc[nt][2..3] for window 8 (lanes 0-3), pixel nt * 8 + 2 (lane & 3) + h,
+// as in box_pass. The two n-tiles are independent chains.
+template <bool WIDE>
+__device__ __forceinline__ void row_mma(const unsigned a[C / 16][4],
+                                        const __nv_bfloat16* e,
+                                        float acc[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const int px = (lane & 7) + (WIDE ? 8 * (lane >> 4) : 0);
+  const int half = (lane >> 3) & 1;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[nt][k] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+    unsigned b[4];
+    ldmatrix_x4(b, e + swz(px, 2 * ks + half, C / 8));
+    mma_bf16(acc[0], a[ks], b[0], b[1]);
+    if (WIDE) mma_bf16(acc[1], a[ks], b[2], b[3]);
+  }
+}
+
+// One probe at one level of one edge (the warp's): window origins as
+// window_origin gives them (c scaled by ``scale``), the probe's box plan,
+// then its box rows and its other windows' own rows streamed through the
+// ring, each row taken up to the probe's phase:
+//   P_LOAD       pixel xa of each window row;
+//   P_CONVERT    the sum of its 16 pixels from xa, fp32 (two 8-pixel sums:
+//                the box's 8-pixel blocks are shared by its windows);
+//   P_ROLL       pixel bx;
+//   P_MULT_SUBL  the sum over its 8 pixels from bx of pixel x g (CUDA
+//                cores);
+//   P_FULL_DOT   the 8 taps g . pixel on the tensor cores (box_pass's mma;
+//                a window read on its own takes two of its rows a step,
+//                one per n-tile).
+// a: the patch rows' mma fragments (P_FULL_DOT), gv: lane's 4 channels of
+// each patch row (P_MULT_SUBL).
+template <int PROBE>
+__device__ __forceinline__ void probe_level(
+    const unsigned a[C / 16][4], const float4 gv[P2],
+    const __nv_bfloat16* fm, const float* c, float scale, int Hp, int Wp,
+    int l, ProbeWarp<PROBE>& w, ProbeSink& sink) {
+  using PP = ProbePlan<PROBE>;
+  const int lane = threadIdx.x & 31;
+  const bool pix = lane < P2;
+  int bx = 0, by = 0;
+  if (pix) {
+    float fx, fy;
+    window_origin(c[lane] * scale, c[P2 + lane] * scale, Hp, Wp, bx, by,
+                  fx, fy);
+  }
+  const int xa = PP::aligned ? min((bx / 8) * 8, Wp - DW) : bx;
+  int x0 = pix ? xa : Wp, y0 = pix ? by : Hp;
+  int xmax = pix ? xa : 0, ymax = pix ? by : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x0 = min(x0, __shfl_xor_sync(0xffffffffu, x0, o));
+    y0 = min(y0, __shfl_xor_sync(0xffffffffu, y0, o));
+    xmax = max(xmax, __shfl_xor_sync(0xffffffffu, xmax, o));
+    ymax = max(ymax, __shfl_xor_sync(0xffffffffu, ymax, o));
+  }
+  if (!PP::aligned) x0 = min(x0, Wp - BOX_W);
+  const int nrows = min(ymax - y0 + D, BOX_H);
+  const int ncols = min(xmax - x0 + PP::width, PP::box_w);
+  const int dx = xa - x0;
+  const bool fits = (PP::aligned ? (dx == 0 || dx == D) : dx <= D)
+                    && by - y0 <= D;
+  unsigned own = __ballot_sync(0xffffffffu, pix && !fits) & 0x1ffu;
+  if (P2 - __popc(own) < PROBE_MIN_FIT) own = (1u << P2) - 1;
+  // each window's origin in the box (rows past every box row when it is
+  // read on its own), in every lane
+  int oy[P2], ox[P2];
+#pragma unroll
+  for (int p = 0; p < P2; ++p) {
+    oy[p] = __shfl_sync(0xffffffffu, by - y0, p);
+    if (own >> p & 1) oy[p] = 1 << 20;
+    ox[p] = __shfl_sync(0xffffffffu, dx, p);
+  }
+  const int gr = lane >> 2;         // full_dot: the windows of this lane's
+  int oy_g = oy[0], ox_g = ox[0];   // accumulator rows, gr (0 .. 7) and 8
+#pragma unroll
+  for (int p = 1; p < P2 - 1; ++p)
+    if (gr == p) { oy_g = oy[p]; ox_g = ox[p]; }
+  const int oy_8 = oy[8], ox_8 = ox[8];
+  const long long stride = (long long)Wp * C;
+
+  if (own != (1u << P2) - 1) {
+    const __nv_bfloat16* box = fm + ((long long)y0 * Wp + x0) * C;
+    stream_entries<PP::box_depth, 1, PP::box_w>(
+        w.ring, nrows, stride,
+        [&](int i, const __nv_bfloat16*& src, int& npx) {
+          src = box + i * stride;
+          npx = ncols;
+        },
+        [&](int r, const __nv_bfloat16* e) {
+          if constexpr (PROBE == P_FULL_DOT) {
+            float acc[2][4];
+            if (ncols > 8) row_mma<true>(a, e, acc);
+            else row_mma<false>(a, e, acc);
+            const int ty_g = r - oy_g;
+            const int ty_8 = r - oy_8;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int col = nt * 8 + 2 * (lane & 3) + h;
+                if ((unsigned)ty_g < D && (unsigned)(col - ox_g) < D)
+                  sink.put1(l, gr, ty_g, col - ox_g, acc[nt][h]);
+                if (gr == 0 && (unsigned)ty_8 < D
+                    && (unsigned)(col - ox_8) < D)
+                  sink.put1(l, 8, ty_8, col - ox_8, acc[nt][2 + h]);
+              }
+          } else if constexpr (PROBE == P_CONVERT) {
+            const float4 b0 = sum8(e, 0);
+            const float4 b1 = sum8(e, D);
+            const float4 b2 = ncols > DW ? sum8(e, DW)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4 s0 = add4(b0, b1);
+            const float4 s1 = add4(b1, b2);
+#pragma unroll
+            for (int p = 0; p < P2; ++p) {
+              const int ty = r - oy[p];
+              if ((unsigned)ty < D) sink.put4(l, p, ty, ox[p] ? s1 : s0);
+            }
+          } else {
+#pragma unroll
+            for (int p = 0; p < P2; ++p) {
+              const int ty = r - oy[p];
+              if ((unsigned)ty >= D) continue;
+              if constexpr (PROBE == P_MULT_SUBL)
+                sink.put4(l, p, ty, mult8(e, ox[p], gv[p]));
+              else
+                sink.put4(l, p, ty, pix4(e, ox[p]));
+            }
+          }
+        });
+  }
+
+  // the windows read on their own: their table, then their entries back to
+  // back, DEPTH - 1 entries in flight across windows
+  if (pix && (own >> lane & 1))
+    w.own[__popc(own & ((1u << lane) - 1))] =
+        OwnWindow{(long long)by * Wp * C + (long long)xa * C, lane, 0};
+  __syncwarp();
+  constexpr int EPW = D / PP::own_rows;             // entries a window
+  stream_entries<PP::own_depth, PP::own_rows, PP::own_w>(
+      w.ring, __popc(own) * EPW, stride,
+      [&](int i, const __nv_bfloat16*& src, int& npx) {
+        src = fm + w.own[i / EPW].off + (i % EPW) * PP::own_rows * stride;
+      },
+      [&](int i, const __nv_bfloat16* e) {
+        const int p = w.own[i / EPW].p;
+        const int ty0 = (i % EPW) * PP::own_rows;
+        if constexpr (PROBE == P_FULL_DOT) {
+          float acc[2][4];                  // n-tile t: row ty0 + t
+          row_mma<true>(a, e, acc);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int tx = 2 * (lane & 3) + h;
+              if (gr == p) sink.put1(l, p, ty0 + nt, tx, acc[nt][h]);
+              if (p == 8 && gr == 0)
+                sink.put1(l, p, ty0 + nt, tx, acc[nt][2 + h]);
+            }
+        } else if constexpr (PROBE == P_CONVERT) {
+          sink.put4(l, p, ty0, add4(sum8(e, 0), sum8(e, D)));
+        } else if constexpr (PROBE == P_MULT_SUBL) {
+          float4 g = gv[0];
+#pragma unroll
+          for (int q = 1; q < P2; ++q)
+            if (q == p) g = gv[q];
+#pragma unroll
+          for (int r = 0; r < PP::own_rows; ++r)
+            sink.put4(l, p, ty0 + r, mult8(e, r * D, g));
+        } else {                            // load, roll: 8 rows of 1 pixel
+#pragma unroll
+          for (int r = 0; r < D; ++r) sink.put4(l, p, r, pix4(e, r));
+        }
+      });
+  __syncwarp();                     // the next level rewrites the table
 }
 
 }  // namespace corr

@@ -1,12 +1,17 @@
 """Compact segment sums over group-sorted rows (CUDA kernels + plain twins).
 
-Counterpart of ``dpvo_tpu/ops/agg_pallas.py``.  Two functions share one
-kernel template (``csrc/segment_sums.cu``):
+Counterpart of ``dpvo_tpu/ops/agg_pallas.py``.  Two functions, two kernels
+of ``csrc/segment_sums.cu``:
 
 - ``segment_softmax_sums`` — the SoftAgg reductions (two per update):
-  ``T1[g] = sum exp(gate - shift)``, ``T2[g] = sum exp(gate - shift) * val``;
+  ``T1[g] = sum exp(gate - shift)``, ``T2[g] = sum exp(gate - shift) * val``
+  (one block per group);
 - ``segment_sums`` — the BA pose-depth coupling sums (one per GN
-  iteration).
+  iteration; blocks own row slices and sum the runs that start in them).
+
+Both kernels add each group's rows in row order from 0 in fp32, so
+``segment_sums`` equals ``segment_sums_ordered`` (the plain version in that
+order) bitwise.
 
 Rows arrive sorted by their dense group rank ``gid`` (nondecreasing, step
 <= 1).  Outputs have ``padded_groups(g_cap)`` rows with zeros past the
@@ -44,6 +49,31 @@ def segment_softmax_sums_plain(gate, vals, shift, gid, g_cap):
 
 def segment_sums_plain(vals, gid, g_cap):
     return _segment_total(vals.float(), gid, padded_groups(g_cap))
+
+
+def segment_sums_ordered(vals, gid, g_cap):
+    """Plain version of ``segment_sums`` in the kernel's summation order:
+    each group's rows added one at a time in row order, from 0, in fp32 (a
+    loop over the offsets within the runs, one IEEE add per row), so the
+    kernel equals it bitwise.  For the tests and ``chip_smoke.py``; the
+    main path uses ``segment_sums``."""
+    G = padded_groups(g_cap)
+    vals = vals.float()
+    out = vals.new_zeros((G, vals.shape[1]))
+    if vals.shape[0] == 0:
+        return out
+    gid = gid.long()
+    head = torch.ones_like(gid, dtype=torch.bool)
+    head[1:] = gid[1:] != gid[:-1]
+    starts = torch.nonzero(head).flatten()
+    lengths = torch.diff(starts, append=starts.new_tensor([len(gid)]))
+    groups = gid[starts]
+    keep = groups < G
+    starts, lengths, groups = starts[keep], lengths[keep], groups[keep]
+    for k in range(int(lengths.max()) if len(lengths) else 0):
+        live = lengths > k
+        out[groups[live]] += vals[starts[live] + k]
+    return out
 
 
 def segment_softmax_sums(gate_sorted, vals_sorted, shift, gid_sorted, g_cap):

@@ -9,12 +9,13 @@ Counterpart of ``dpvo_tpu/ops/corr_pallas.py``:
   raw, v10 or v12 feature layout, ``corr_pallas_fused``;
 - ``corr_single`` (K5, the same source) and ``corr_grouped``: one level, raw
   or the reference's (E, 7, 7, 3, 3) order, ``corr_pallas``;
-- ``corr_probe`` (D3, the same source): K1's window stage stopped after one
+- ``corr_probe`` (D3, the same source): K1's box stage stopped after one
   phase, ``scripts/dev/corr_variants.py:probe_variant``.
 
 On bf16 rings the kernels take each patch's 9 windows at a level from one
-box of ring rows read once (``window_boxes`` is the plan, in Python); fp32
-rings keep the per-window-row stage.
+box of ring rows read once (``window_boxes`` is the plan, in Python; the
+probes' is ``window_boxes(aligned=...)`` with ``PROBE_PLAN``); fp32 rings
+keep the per-window-row stage.
 
 Feature rings are stored zero-padded (``pad_fmap``), so every 8x8 tap
 window is an in-bounds read and out-of-image taps read zeros.  The kernels
@@ -60,6 +61,14 @@ _LAYOUTS = {"raw": 0, "v10": 1, "v12": 2, "ref": 3}
 # D3's phase probes, in pipeline order (csrc/corr_window.cuh's Probe enum)
 PROBES = ("p_load", "p_convert", "p_roll", "p_mult_subl", "p_full_dot")
 PROBE_TILE = 16    # edges of the probe's output block (the TPU's last tile)
+PROBE_BOX_W = DW + D   # columns of the load / convert probes' aligned box
+PROBE_MIN_FIT = 5      # windows that must fit before a probe reads a box
+# per probe (csrc/corr_window.cuh ProbePlan): whether its box is the
+# 8-aligned one (window_boxes(aligned=True)), and the pixels per window row
+# its per-window path reads
+PROBE_PLAN = {"p_load": (True, 1), "p_convert": (True, DW),
+              "p_roll": (False, 1), "p_mult_subl": (False, D),
+              "p_full_dot": (False, D)}
 
 
 def layout_for_version(version):
@@ -156,36 +165,58 @@ def _window_origin(c, Hp, Wp):
     return bx, by, cx - bx_f, cy - by_f
 
 
-def window_boxes(coords, Hp, Wp):
+def window_boxes(coords, Hp, Wp, aligned=False, min_fit=1):
     """The box plan of the bf16 kernels' window stage
     (``csrc/corr_window.cuh``, ``level_taps``), per (edge, level).
 
     coords  (E, 2, 3, 3) level-1 pixel coords (unpadded; numpy or torch)
     Hp, Wp  sequences of the padded map dims, one per level; level l
             samples coords / 4**l
+    aligned the plan of D3's load and convert probes (``probe_level``):
+            windows read DW columns from their 8-aligned origin
+            min(8 * (bx // 8), Wp - DW) instead of 8 from bx
+    min_fit the box is read only when at least this many of the 9 windows
+            fit it; otherwise none counts as fitting (the probes:
+            ``PROBE_MIN_FIT``)
     -> dict of torch tensors: ``x0``, ``y0``, ``nrows``, ``ncols`` (E, L)
     int64, the box of rows [y0, y0 + nrows) and columns [x0, x0 + ncols)
-    of the padded map; ``window_fits`` (E, L, 9) whether each 8x8 window
-    lies in it; ``fits`` (E, L) whether all 9 do.  The box starts at the
-    windows' smallest origin (x0 moved left so 16 columns stay inside the
-    map) and spans at most 16 rows and 16 columns; a window that does not
-    fit is read from a box of its own, its 8 rows from its origin and its
-    columns from min(bx, Wp - 16) to bx + 8.
+    of the padded map; ``wx`` (E, L, 9) each window's first column;
+    ``window_fits`` (E, L, 9) whether each window lies in the box; ``fits``
+    (E, L) whether all 9 do.  The box starts at the windows' smallest
+    origin (x0 moved left so 16 columns stay inside the map) and spans at
+    most 16 rows and 16 columns (aligned: 24 columns, and a window fits
+    when its origin is x0 or x0 + 8); a window that does not fit is read
+    from a box of its own, its 8 rows from its origin (the kernels' columns:
+    K1 and K2 from min(bx, Wp - 16) to bx + 8, the probes ``PROBE_PLAN``'s
+    from wx).
     """
     c = torch.as_tensor(coords, dtype=torch.float32)
-    out = {k: [] for k in ("x0", "y0", "nrows", "ncols", "window_fits")}
+    keys = ("x0", "y0", "nrows", "ncols", "wx", "window_fits")
+    out = {k: [] for k in keys}
+    width, box_w = (DW, PROBE_BOX_W) if aligned else (D, DW)
     for level, (H, W) in enumerate(zip(Hp, Wp)):
         bx, by, _, _ = _window_origin(c * 0.25 ** level, H, W)
+        if aligned:
+            wx = torch.clamp(torch.div(bx, 8, rounding_mode="floor") * 8,
+                             max=W - DW)
+            x0 = wx.min(1).values
+            dx = wx - x0[:, None]
+            fit_x = (dx == 0) | (dx == D)
+        else:
+            wx = bx
+            x0 = torch.clamp(bx.min(1).values, max=W - DW)
+            fit_x = wx - x0[:, None] <= D
         y0 = by.min(1).values
-        x0 = torch.clamp(bx.min(1).values, max=W - DW)
         out["x0"].append(x0)
         out["y0"].append(y0)
         out["nrows"].append(torch.clamp(by.max(1).values - y0 + D,
                                         max=2 * D))
-        out["ncols"].append(torch.clamp(bx.max(1).values - x0 + D,
-                                        max=DW))
-        out["window_fits"].append((bx - x0[:, None] <= D)
-                                  & (by - y0[:, None] <= D))
+        out["ncols"].append(torch.clamp(wx.max(1).values - x0 + width,
+                                        max=box_w))
+        out["wx"].append(wx)
+        fit = fit_x & (by - y0[:, None] <= D)
+        out["window_fits"].append(fit & (fit.sum(1, keepdim=True)
+                                         >= min_fit))
     out = {k: torch.stack(v, 1) for k, v in out.items()}
     out["fits"] = out["window_fits"].all(-1)
     return out
@@ -501,10 +532,11 @@ def corr_probe(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows, probe):
     E = coords.shape[0]
     _probe_edges(E)
     bf = torch.bfloat16
-    _cuda.require(g_pre, "g_pre", bf, (E, P2, C))
+    _cuda.require(g_pre, "g_pre", bf, (E, P2, C), aligned=True)
     Fn = fmap1_padded.shape[0]
     for i, fm in enumerate((fmap1_padded, fmap2_padded), 1):
-        _cuda.require(fm, f"fmap{i}_padded", bf, (Fn, None, None, C))
+        _cuda.require(fm, f"fmap{i}_padded", bf, (Fn, None, None, C),
+                      aligned=True)
         if fm.shape[1] < D or fm.shape[2] < DW:
             raise ValueError("padded feature maps must be at least 8 rows "
                              "by 16 columns")

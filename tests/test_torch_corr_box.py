@@ -158,3 +158,110 @@ def test_taps_through_the_plan_match_window_taps(kind):
                                     fm[ff[e], y:y + tc.D, px0:x + tc.D])
                     got[e, p] = own[:, x - px0:]
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# --- D3's probes: the aligned box of load / convert, and PROBE_PLAN --------
+
+C_PROBE = 128     # the probes' lanes are channels: full width
+
+def _probe_plan(coords, probe):
+    return tc.window_boxes(coords, [h for h, _ in HW], [w for _, w in HW],
+                           aligned=tc.PROBE_PLAN[probe][0],
+                           min_fit=tc.PROBE_MIN_FIT)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_probe_boxes_lie_in_the_map(kind):
+    """The aligned plan: windows start at their 8-aligned origin; a fitting
+    window's 16 columns and 8 rows lie in its box, the box (at most 24
+    columns) and every window's own columns in the padded map."""
+    coords = patch_coords(kind)
+    b = tc.window_boxes(coords, [h for h, _ in HW], [w for _, w in HW],
+                        aligned=True)
+    bx, by = _origins(coords)
+    Wp = torch.tensor([w for _, w in HW])
+    Hp = torch.tensor([h for h, _ in HW])
+    wx = b["wx"]
+    assert torch.equal(wx, torch.clamp(bx // 8 * 8, max=Wp[:, None] - tc.DW))
+    assert ((wx <= bx) & (bx + tc.D <= wx + tc.DW)).all()
+    x0, y0 = b["x0"][..., None], b["y0"][..., None]
+    inside = ((wx >= x0) & (wx + tc.DW <= x0 + b["ncols"][..., None])
+              & (by >= y0) & (by + tc.D <= y0 + b["nrows"][..., None]))
+    assert inside[b["window_fits"]].all()
+    assert (b["x0"] >= 0).all() and (b["x0"] + b["ncols"] <= Wp).all()
+    assert (b["y0"] + b["nrows"] <= Hp).all()
+    assert (b["ncols"] <= tc.PROBE_BOX_W).all()
+    assert (wx + tc.DW <= Wp[:, None]).all()
+
+
+def test_compact_patches_fit_the_probe_box():
+    rng = np.random.default_rng(4)
+    E = 500
+    ctr = rng.uniform([-20.0, -20.0], [W + 20, H + 20], (E, 2))
+    grid = np.arange(3) - 1.0
+    coords = np.stack(np.broadcast_arrays(
+        ctr[:, 0, None, None] + grid[None, None, :],
+        ctr[:, 1, None, None] + grid[None, :, None]), 1)
+    coords = (coords + rng.uniform(-0.45, 0.45, coords.shape)).astype(
+        np.float32)
+    for probe in tc.PROBES:
+        assert _probe_plan(coords, probe)["fits"].all(), probe
+
+
+def probe_through_plan(probe, g, fmaps, coords, ff):
+    """A probe's values as its kernel takes them: a fitting window's rows
+    and columns from its (edge, level) box, the others from the probe's own
+    columns, ``PROBE_PLAN``'s pixels from wx; convert as two 8-pixel sums
+    -> (E, 2, 9, 8, 128)."""
+    own_w = tc.PROBE_PLAN[probe][1]
+    b = _probe_plan(coords, probe)
+    _, by = _origins(coords)
+    E, C = g.shape[0], g.shape[-1]
+    out = np.zeros((E, 2, tc.P2, tc.D, 128), np.float32)
+    for e in range(E):
+        for lvl, fmap in enumerate(fmaps):
+            fm = fmap[ff[e]]
+            x0, y0 = int(b["x0"][e, lvl]), int(b["y0"][e, lvl])
+            nr, nc = int(b["nrows"][e, lvl]), int(b["ncols"][e, lvl])
+            box = fm[y0:y0 + nr, x0:x0 + nc]
+            for p in range(tc.P2):
+                wx, y = int(b["wx"][e, lvl, p]), int(by[e, lvl, p])
+                if b["window_fits"][e, lvl, p]:
+                    src = box[y - y0:y - y0 + tc.D, wx - x0:]
+                else:
+                    src = fm[y:y + tc.D, wx:wx + own_w]
+                    assert src.shape[1] == own_w
+                if probe in ("p_load", "p_roll"):
+                    v = src[:, 0]
+                elif probe == "p_convert":
+                    v = src[:, :8].sum(1) + src[:, 8:16].sum(1)
+                elif probe == "p_mult_subl":
+                    v = (src[:, :tc.D] * g[e, p]).sum(1)
+                else:
+                    v = np.zeros((tc.D, 128), np.float32)
+                    v[:, :tc.D] = src[:, :tc.D] @ g[e, p]
+                out[e, lvl, p, :, :v.shape[-1]] = v
+    return out
+
+
+@pytest.mark.parametrize("probe", tc.PROBES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_probes_through_the_plan_match_plain(kind, probe):
+    """Each probe read through its plan equals ``corr_probe_plain`` (fp32,
+    1e-5 of the largest value: summation order only)."""
+    rng = np.random.default_rng(6)
+    E, F = 16, 3
+    coords = patch_coords(kind, E=E, seed=7)
+    ff = rng.integers(0, F, E)
+    g = rng.normal(size=(E, tc.P2, C_PROBE)).astype(np.float32)
+    fmaps = [tc.pad_fmap(torch.as_tensor(rng.normal(
+        size=(F, h, w, C_PROBE)).astype(np.float32)))
+        for h, w in ((H, W), (H // 4, W // 4))]
+    want = tc.corr_probe_plain(torch.as_tensor(g), *fmaps,
+                               torch.as_tensor(coords),
+                               torch.as_tensor(ff, dtype=torch.int32),
+                               probe).numpy()
+    got = probe_through_plan(probe, g, [f.numpy() for f in fmaps], coords,
+                             ff)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

@@ -8,12 +8,17 @@ suite's conftest configures JAX, which that machine need not have).
 Tolerances: fp32 correlation atol 1e-4 (summation order only); bf16
 correlation one bf16 step of the output's magnitude (1e-2 relative); the
 segment sums rtol 2e-5 / atol 1e-5, as the CPU tests hold the plain
-versions to the Pallas kernels.  The raw-feature kernels (K1 ``corr_fused``
-in the raw, v10 and v12 layouts, K5 ``corr_single`` raw and in the
-reference order) are held to their plain versions the same way, dead lanes
-and rows past ``n_live_rows`` included.  The D3 phase probes
-(``corr_probe``) are held to theirs at 1e-5 of the largest output (fp32 sums
-of exact bf16 products), and the engine with lagged keyframe decisions on
+versions to the Pallas kernels, and K4 (``segment_sums``) bitwise equal to
+``segment_sums_ordered``, the plain version in its summation order, on
+``tests/test_torch_segments.py``'s cases (runs across slice boundaries,
+one group, a low last rank, single rows), at (3000, 98, 900 groups, g_cap
+256: ranks past the table dropped), at an odd width and with no rows.  The
+raw-feature kernels (K1 ``corr_fused`` in the raw, v10 and v12 layouts, K5
+``corr_single`` raw and in the reference order) are held to their plain
+versions the same way, dead lanes and rows past ``n_live_rows`` included.
+The D3 phase probes (``corr_probe``) are held to theirs at 1e-5 of the
+largest output (fp32 sums of exact bf16 products), on uniform coordinates
+and on fitted, spread and border-clamped 3x3 patches, and the engine with lagged keyframe decisions on
 the card to the same engine on the CPU (structure exact, translation 5e-2,
 quaternion dot > 1-1e-3, the envelopes of the CPU parity tests).  The bf16
 kernels' box window stage is held to the plain versions on compact 3x3
@@ -29,6 +34,7 @@ import torch
 
 from dpvo_tpu_torch.ops import _cuda, agg_cuda, corr_cuda
 from test_torch_corr_box import patch_coords
+from test_torch_segments import CASES as SEGMENT_CASES, segment_case
 
 pytestmark = pytest.mark.cuda
 
@@ -242,6 +248,27 @@ def test_segment_kernels_vs_plain(dev, E, D, n_groups, g_cap):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("kind", SEGMENT_CASES + ["main", "odd", "empty"])
+def test_segment_sums_kernel_bitwise(dev, kind):
+    if kind == "main":
+        vals, _, gid = _segments(dev, 3000, 98, 900, seed=5)
+        g_cap = 256
+    else:
+        E, D = {"odd": (1000, 7), "empty": (0, 98)}.get(kind, (512, 98))
+        vals, gid, g_cap = segment_case("random" if kind in ("odd", "empty")
+                                        else kind, E=E, D=D)
+        vals, gid = torch.as_tensor(vals, device=dev), torch.as_tensor(
+            gid, device=dev)
+    before = _cuda.launches["segment_sums"]
+    got = agg_cuda.segment_sums(vals, gid, g_cap)
+    want = agg_cuda.segment_sums_ordered(vals, gid, g_cap)
+    torch.cuda.synchronize()
+    assert _cuda.launches["segment_sums"] == before + 1
+    assert got.shape == want.shape == (agg_cuda.padded_groups(g_cap),
+                                       vals.shape[1])
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("probe", corr_cuda.PROBES)
 def test_corr_probe_kernel_vs_plain(dev, probe):
     g_pre, f1, f2, coords, ff = _raw_inputs(dev, BF16, E=208)
@@ -252,6 +279,21 @@ def test_corr_probe_kernel_vs_plain(dev, probe):
     torch.cuda.synchronize()
     assert _cuda.launches[key] == before + 1
     assert got.shape == want.shape == (16, 2, 9, 8, 128)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("kind", ["compact", "spread", "borders"])
+@pytest.mark.parametrize("probe", corr_cuda.PROBES)
+def test_corr_probe_kernel_fitted(dev, probe, kind):
+    """The probes' box path: patches whose windows fit one box (compact),
+    half of them spread beyond it, and clamped at the map's borders."""
+    g_pre, f1, f2, _, ff = _raw_inputs(dev, BF16, E=208)
+    coords = torch.as_tensor(patch_coords(kind, 208, seed=9, h=32, w=48),
+                             device=dev)
+    got = corr_cuda.corr_probe(g_pre, f1, f2, coords, ff, probe)
+    want = corr_cuda.corr_probe_plain(g_pre, f1, f2, coords, ff, probe)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
 

@@ -50,20 +50,34 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    edges, each kernel's launch count (every kernel of the drive's path >
    0, the other correlation kernel 0), the box fit share at the last
    update and finite poses;
-5. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
+5. loop closure (``LOOP_CLOSURE=True``, ``configs/default.yaml``'s
+   setting): the fp32 engine on the card against the CPU engine on 45
+   small frames (``REMOVAL_WINDOW=6``, ``GLOBAL_OPT_FREQ=10``, so global BA
+   runs at initialisation, proposals land and ``ba_global`` runs), structure
+   exact (with the inactive store and the keyframe counts that ran global
+   BA) and poses within the never-merge envelope; then one drive at
+   480x640, M=96, bf16, ``configs/default.yaml``'s values with the 1000-frame
+   patch rings (``MAX_EDGE_AGE``) in the retain regime, each override
+   printed, which must propose loop edges, run ``ba_global``, launch K2, K3
+   and K4 and end with finite poses (ms/frame, global BA ms per call and
+   calls by solver, peak live and inactive edges, peak device memory, 3
+   profiled frames with global BA, K2 at the drive's last update on the
+   96000-row gmap ring); then one ``ba_global`` call at that drive's
+   largest shapes under ``torch.cuda.set_sync_debug_mode("error")``;
+6. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
    default configuration (lagged keyframing), 30 warm frames and two
    40-frame windows each, then 5 profiled frames: ms/frame per window,
    live edges, the device idle share, launch counts, the box fit share at
    the last update; the merge drive's TUM trajectory and PLY map are
    written to a temporary directory and read back;
-6. the kernels line (one JSON object; ``launches`` from the bench merge
+7. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, bench) runs
-those phases alone and prints no kernels line and no ``ok`` line.
+``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, bench)
+runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -367,6 +381,18 @@ def check_segment_sums(vals, gid, g_cap):
     return err, err_ord, ok
 
 
+def check_softmax_sums(gate, val, shift, gid, g_cap):
+    """K3 against its plain version (TOL_SEG): (max error, holds)."""
+    import torch
+    from dpvo_tpu_torch.ops import agg_cuda
+    got = agg_cuda.segment_softmax_sums(gate, val, shift, gid, g_cap)
+    want = agg_cuda.segment_softmax_sums_plain(gate, val, shift, gid, g_cap)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    return err, bool(torch.allclose(got, want, rtol=TOL_SEG[0],
+                                    atol=TOL_SEG[1]))
+
+
 def segment_edge_cases(dev, E, D, g_cap):
     """K4 at E rows on its edge cases, each against both references: runs
     of 16 rows whose heads sit 11 and 27 rows into every 32-row slice (so
@@ -646,13 +672,7 @@ def phase_kernels(dev):
         g_cap = k_cap + 8
         gate, val, gid = segment_inputs(E, D_agg, n_patches, dev, gen)
         shift = gate.max(dim=0, keepdim=True).values
-        got = agg_cuda.segment_softmax_sums(gate, val, shift, gid, g_cap)
-        want = agg_cuda.segment_softmax_sums_plain(gate, val, shift, gid,
-                                                   g_cap)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, rtol=TOL_SEG[0],
-                                 atol=TOL_SEG[1]))
+        err, ok = check_softmax_sums(gate, val, shift, gid, g_cap)
         ms = graph_ms(lambda: agg_cuda.segment_softmax_sums(
             gate, val, shift, gid, g_cap), reps=20)
         b2b_ms = time_ms(lambda: agg_cuda.segment_softmax_sums(
@@ -769,7 +789,12 @@ def small_network(seed=0):
     return p.state_dict(), u.state_dict()
 
 
-def small_drive(dev, thresh, network, **overrides):
+def small_drive(dev, thresh, network, n_frames=16, hook=None,
+                **overrides):
+    """The small drive; ``hook(slam)`` runs before the first frame.  ->
+    (poses, structure: keyframes, live edges, keyframe timestamps, delta
+    keys, inactive edges and their (ii, jj, kk), the keyframe counts that
+    ran global BA)."""
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
@@ -787,10 +812,15 @@ def small_drive(dev, thresh, network, **overrides):
     slam.motion_probe = lambda: 100.0
     slam.test_centroids = centroids
     slam.test_fixed_depth = 0.7
-    for t, img in enumerate(small_frames()):
+    if hook is not None:
+        hook(slam)
+    for t, img in enumerate(small_frames(n_frames)):
         slam(t, img, SMALL_INTR)
-    state = (slam.n, slam.hs.e_num, slam.hs.tstamps[:slam.n].tolist(),
-             sorted(slam.hs.delta))
+    hs = slam.hs
+    state = (slam.n, hs.e_num, hs.tstamps[:slam.n].tolist(),
+             sorted(hs.delta), hs.n_inac,
+             [a.tolist() for a in (hs.ii_inac, hs.jj_inac, hs.kk_inac)],
+             np.nonzero(slam.ran_global_ba)[0].tolist())
     poses, _ = slam.terminate()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -893,26 +923,45 @@ def phase_agreement_bf16(dev):
 
 
 @contextlib.contextmanager
-def last_corr_coords():
-    """Keep the coords and rings of the last corr_enc / corr_fused call the
-    engine makes (``box[0]``), passing every call through unchanged."""
-    from dpvo_tpu_torch.ops import corr_cuda
-    box = [None]
-    old = corr_cuda.corr_enc, corr_cuda.corr_fused
+def last_calls():
+    """Keep, passing every call through unchanged: the coords and rings of
+    the last corr_enc / corr_fused call the engine makes (``box["coords"]``),
+    the arguments of the last corr_enc call (``box["corr_enc"]``), and those
+    of the segment_softmax_sums and segment_sums calls with the most groups
+    (``box[name]``): on a tie K3's first (an update's patch groups come
+    before its frame-pair groups) and K4's last."""
+    from dpvo_tpu_torch.ops import agg_cuda, corr_cuda
+    box = dict(coords=None, corr_enc=None, segment_softmax_sums=None,
+               segment_sums=None)
+    old = (corr_cuda.corr_enc, corr_cuda.corr_fused,
+           agg_cuda.segment_softmax_sums, agg_cuda.segment_sums)
 
-    def enc(g_all, kk, w, f1, f2, coords, ff):
-        box[0] = (coords, f1, f2)
-        return old[0](g_all, kk, w, f1, f2, coords, ff)
+    def enc(*args):
+        box["coords"] = (args[5], args[3], args[4])
+        box["corr_enc"] = args
+        return old[0](*args)
 
     def fused(g_pre, f1, f2, coords, *rest):
-        box[0] = (coords, f1, f2)
+        box["coords"] = (coords, f1, f2)
         return old[1](g_pre, f1, f2, coords, *rest)
 
+    def most_groups(name, fn, later):
+        def call(*args):                 # g_cap is the last argument
+            if (box[name] is None or args[-1] > box[name][-1]
+                    or later and args[-1] == box[name][-1]):
+                box[name] = args
+            return fn(*args)
+        return call
+
     corr_cuda.corr_enc, corr_cuda.corr_fused = enc, fused
+    agg_cuda.segment_softmax_sums = most_groups("segment_softmax_sums",
+                                                old[2], later=False)
+    agg_cuda.segment_sums = most_groups("segment_sums", old[3], later=True)
     try:
         yield box
     finally:
-        corr_cuda.corr_enc, corr_cuda.corr_fused = old
+        (corr_cuda.corr_enc, corr_cuda.corr_fused,
+         agg_cuda.segment_softmax_sums, agg_cuda.segment_sums) = old
 
 def device_profile(prof, wall_ms, n_frames, top=8):
     """Device busy time (the union of the CUDA kernel intervals the
@@ -987,7 +1036,7 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     _cuda.reset_launches()
     ms, edges = [], []
     n_timed = n_frames - n_profile
-    with last_corr_coords() as last:
+    with last_calls() as last:
         for t in range(n_timed):
             img = frame(t)
             t0 = time.perf_counter()
@@ -1010,7 +1059,7 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
             profile = device_profile(prof, wall_ms, n_profile)
         poses, tstamps = slam.terminate()
         sync()
-    fits = fit_share(*last[0])
+    fits = fit_share(*last["coords"])
     launches = dict(_cuda.launches)
     steady = sorted(ms[n_warm:])
     out = dict(regime=name, frames=n_frames, keyframes=slam.n,
@@ -1023,7 +1072,7 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
         f"live edges {edges[-1]} (max {max(edges)}), keyframes {slam.n}, "
         f"launches {launches}")
     log(f"[profile] {name} frames {n_timed}..{n_frames - 1}: {profile}")
-    log(f"[engine] {name} last update ({last[0][0].shape[0]} edges): "
+    log(f"[engine] {name} last update ({last['coords'][0].shape[0]} edges): "
         f"{fits}")
     expect, absent = PATH_KERNELS[version]
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
@@ -1053,7 +1102,7 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     for regime in ("merge", "retain"):
         torch.cuda.synchronize()
         _cuda.reset_launches()
-        with last_corr_coords() as last:
+        with last_calls() as last:
             r = bench_torch.run_regime(regime, device=dev,
                                        min_windows=n_windows,
                                        max_windows=n_windows,
@@ -1070,8 +1119,8 @@ def phase_bench(dev, n_windows=2, n_profile=5):
             f"over their frames), keyframes {r['keyframes']}, launches "
             f"{r['launches']}")
         log(f"[profile] bench {regime} last {n_profile} frames: {profile}")
-        log(f"[bench] {regime} last update ({last[0][0].shape[0]} edges): "
-            + fit_share(*last[0]))
+        log(f"[bench] {regime} last update ({last['coords'][0].shape[0]} "
+            f"edges): " + fit_share(*last["coords"]))
         ok = (np.isfinite(r["poses"]).all() and len(r["tstamps"]) == n
               and all(r["launches"].get(k, 0) > 0 for k in expect)
               and not any(r["launches"].get(k, 0) for k in absent))
@@ -1099,13 +1148,275 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     return out
 
 
+# --- phase 5: loop closure ------------------------------------------------
+
+# the small loop-closure drive (tests/test_torch_loop_closure.py's): frame
+# 0 is live at initialisation (REMOVAL_WINDOW 6), proposals are looked for
+# every 10 keyframes, and the 45 keyframes reach 30 frames apart
+LC_SMALL = dict(REMOVAL_WINDOW=6, LOOP_CLOSURE=True, GLOBAL_OPT_FREQ=10,
+                BACKEND_THRESH=1e9, MAX_EDGE_AGE=64, EDGE_CAPACITY=2048)
+LC_SMALL_FRAMES = 45
+# the full-width drive: configs/default.yaml with these overrides.  The
+# retain regime keeps every frame, so keyframes reach REMOVAL_WINDOW + 30
+# = 52 and proposals land at 35, 50 and 65; it retires about 2400 edges a
+# frame, which the default inactive store (16384 rows) holds for 7 frames.
+# The edge table holds the retain regime's 45312 live edges and the loop
+# edges.  Random weights give no valid flow test at the default
+# BACKEND_THRESH, so any valid pair qualifies.
+LC_FULL = dict(KEYFRAME_THRESH=0.0, BUFFER_SIZE=128,
+               EDGE_CAPACITY_INAC=1 << 18, EDGE_CAPACITY=1 << 17,
+               BACKEND_THRESH=1e9)
+LC_FULL_FRAMES = 72
+LC_PROFILE = (64, 67)    # frames with global BA (after the proposal at 65)
+
+
+@contextlib.contextmanager
+def lc_counters():
+    """Count and time what loop closure does: ``ba_global`` calls (the
+    largest call's inputs kept in ``out["ba_global_args"]``), and, in an
+    engine passed to ``out["attach"]``, proposal batches (keyframe count,
+    pairs) and global BA calls (ms each, synchronised before and after)."""
+    import torch
+    from dpvo_tpu_torch.ops import ba
+    out = dict(proposals=[], global_ms=[], ba_global=0, ba_global_args=None)
+    ba_global = ba.ba_global
+
+    def counted(*args, **kw):
+        out["ba_global"] += 1
+        best = out["ba_global_args"]
+        if args[0].is_cuda and (best is None
+                                or args[6].shape[0] > best[0][6].shape[0]):
+            out["ba_global_args"] = ([a.clone() if torch.is_tensor(a) else a
+                                      for a in args], kw)
+        return ba_global(*args, **kw)
+
+    def attach(slam):
+        edges_loop, run_global = slam.edges_loop, slam._run_global_ba
+        sync = (torch.cuda.synchronize if slam.device.type == "cuda"
+                else lambda: None)
+
+        def proposals():
+            kk, jj = edges_loop()
+            if len(kk):
+                out["proposals"].append((slam.n, len(kk) // slam.M))
+            return kk, jj
+
+        def timed_global():
+            sync()
+            t0 = time.perf_counter()
+            run_global()
+            sync()
+            out["global_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        slam.edges_loop, slam._run_global_ba = proposals, timed_global
+
+    out["attach"] = attach
+    ba.ba_global = counted
+    try:
+        yield out
+    finally:
+        ba.ba_global = ba_global
+
+
+def phase_lc_agreement(dev):
+    """The small loop-closure drive on the card against the CPU: structure
+    exact, poses within the never-merge envelope; the card drive must run
+    global BA at initialisation, propose and call ba_global."""
+    import torch
+    network = small_network()
+    thresh, atol_t, atol_q = AGREE["never_merge"]
+    t0 = time.perf_counter()
+    with lc_counters() as out:
+        p_gpu, s_gpu = small_drive(dev, thresh, network, LC_SMALL_FRAMES,
+                                   hook=out["attach"], **LC_SMALL)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_cpu, s_cpu = small_drive(torch.device("cpu"), thresh, network,
+                               LC_SMALL_FRAMES, **LC_SMALL)
+    t_cpu = time.perf_counter() - t0
+    err_t, err_q = pose_errors(p_gpu, p_cpu)
+    ok = (s_gpu == s_cpu and np.isfinite(p_gpu).all() and err_t <= atol_t
+          and err_q <= atol_q and 8 in s_gpu[6] and out["proposals"]
+          and out["ba_global"] > 0)
+    log(f"[lc] small drive {LC_SMALL_FRAMES} frames {LC_SMALL}: card "
+        f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s; n={s_gpu[0]} edges={s_gpu[1]} "
+        f"inactive={s_gpu[4]} global BA at keyframe counts {s_gpu[6]}; "
+        f"proposals (n, pairs) {out['proposals']}; global BA calls "
+        f"{len(out['global_ms'])} (ba_global {out['ba_global']}); "
+        f"structure {'same' if s_gpu == s_cpu else 'DIFFERENT'}; "
+        f"max|dt|={err_t:.3e} (tol {atol_t}) 1-min|q.q'|={err_q:.3e} "
+        f"(tol {atol_q}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the loop-closure engine on the card disagrees "
+                         "with the CPU engine, or did not propose and run "
+                         "ba_global")
+
+
+def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
+    """configs/default.yaml (LOOP_CLOSURE on, 1000-frame patch rings) at
+    480x640 with LC_FULL's overrides, seeded random weights, motion_probe
+    forced, a frame rolling 4 px per frame; launch counts zeroed just
+    before and read after terminate().  -> the counters of lc_counters."""
+    import torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    from dpvo_tpu_torch.ops import _cuda
+    path = Path(__file__).resolve().parent / "configs" / "default.yaml"
+    cfg = VOConfig().merge_yaml(str(path)).replace(**LC_FULL)
+    slam = DPVO(cfg, network=None, ht=ht, wd=wd, device=dev, seed=0)
+    slam.motion_probe = lambda: 100.0
+    log(f"[lc] full drive: configs/default.yaml (LOOP_CLOSURE="
+        f"{cfg.LOOP_CLOSURE}, MAX_EDGE_AGE={cfg.MAX_EDGE_AGE}, "
+        f"GLOBAL_OPT_FREQ={cfg.GLOBAL_OPT_FREQ}, M={cfg.PATCHES_PER_FRAME}, "
+        f"MIXED_PRECISION={cfg.MIXED_PRECISION}) with overrides {LC_FULL}; "
+        f"{ht}x{wd}, {n_frames} frames, pmem={slam.pmem}, gmap ring "
+        f"{tuple(slam.ds.gmap.shape)} {slam.ds.gmap.dtype}")
+    base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
+                                             dtype=np.uint8)
+    intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    ms, with_global, peak_e, peak_inac = [], [], 0, 0
+    profiled, prof_calls = range(*LC_PROFILE), set()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with lc_counters() as out, last_calls() as last:
+        out["attach"](slam)
+        for t in range(n_frames):
+            img = np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
+            if t == profiled[0]:
+                prof.start()
+                t_prof = time.perf_counter()
+            calls = len(out["global_ms"])
+            t0 = time.perf_counter()
+            slam(t, img, intr)
+            torch.cuda.synchronize()
+            frame_ms = (time.perf_counter() - t0) * 1e3
+            if t in profiled:
+                prof_calls.update(range(calls, len(out["global_ms"])))
+            elif t >= 20:
+                ms.append(frame_ms)
+                with_global.append(len(out["global_ms"]) > calls)
+            if t == profiled[-1]:
+                prof.stop()
+                profile = device_profile(
+                    prof, (time.perf_counter() - t_prof) * 1e3,
+                    len(profiled))
+            peak_e = max(peak_e, slam.hs.e_num)
+            peak_inac = max(peak_inac, slam.hs.n_inac)
+        poses, tstamps = slam.terminate()
+        torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(ms)
+    plain = sorted(m for m, g in zip(ms, with_global) if not g)
+    glob = sorted(m for m, g in zip(ms, with_global) if g)
+    by_solver = (f"ba_global {out['ba_global']}, ba_iterative "
+                 f"{len(out['global_ms']) - out['ba_global']}")
+    gms = [m for i, m in enumerate(out["global_ms"]) if i not in prof_calls]
+
+    def median(v):
+        return f"{v[len(v) // 2]:.2f}" if v else "none"
+
+    log(f"[lc] full drive: {n_frames} frames, median {median(steady)} "
+        f"ms/frame (frames 20..{n_frames - 1} but the profiled "
+        f"{profiled[0]}..{profiled[-1]}, max {steady[-1]:.2f}; without "
+        f"global BA {len(plain)} frames, median {median(plain)}; with "
+        f"global BA {len(glob)} frames, median {median(glob)} ms), keyframes "
+        f"{slam.n}, proposals (n, pairs) {out['proposals']}; global BA "
+        f"{len(out['global_ms'])} calls ({by_solver}), "
+        + (f"{np.median(gms):.2f} ms per call median of the {len(gms)} "
+           f"unprofiled (min {min(gms):.2f}, max {max(gms):.2f}) "
+           if gms else "")
+        + f"at keyframe counts {np.nonzero(slam.ran_global_ba)[0].tolist()};"
+        f" peak live edges {peak_e}, peak inactive edges {peak_inac}; "
+        f"max_memory_allocated {mem:.2f} GiB; launches {launches}")
+    log(f"[profile] lc full drive frames {profiled[0]}..{profiled[-1]} "
+        f"(synchronised each frame): {profile}")
+    ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
+          and len(tstamps) == n_frames and out["proposals"]
+          and out["ba_global"] > 0
+          and all(launches.get(k, 0) > 0 for k in PATH_KERNELS[13][0]))
+    if not ok:
+        raise SystemExit(f"the loop-closure drive failed: poses finite "
+                         f"{np.isfinite(poses).all()}, proposals "
+                         f"{out['proposals']}, ba_global calls "
+                         f"{out['ba_global']}, launches {launches}")
+    out["launches"] = launches
+    check_lc_kernels(last)
+    return out
+
+
+def check_lc_kernels(last):
+    """K2 at the full drive's last update (its 1000-frame gmap ring), and
+    K3 and K4 at the drive's calls with the most groups (``last_calls``),
+    each against its plain version; K3 must see more patch groups than
+    phase 2's 4104."""
+    import torch
+    args = last["corr_enc"]
+    k2 = {}
+    check_enc(k2, "at the lc drive's last update", args)
+    r = next(iter(k2["corr_enc"].values()))
+    log(f"[lc] K2 at the drive's last update: {args[5].shape[0]} edges, "
+        f"gmap ring {args[0].shape[0]} rows: max_abs_err "
+        f"{r['max_abs_err']:.3e} (tol {TOL_K2}*max|plain|), {r['ms']:.4f} "
+        f"ms (bound {r['bound_ms']:.4f}, {r['bound_by']})")
+    gate, val, shift, gid, g_cap = last["segment_softmax_sums"]
+    groups = int(gid.max()) + 1
+    err, ok = check_softmax_sums(gate, val, shift, gid, g_cap)
+    ok = ok and groups > 4104
+    log(f"[lc] K3 at the drive's widest update: E={len(gid)}, {groups} "
+        f"groups, g_cap={g_cap}: max_abs_err={err:.3e} tol=rtol "
+        f"{TOL_SEG[0]} atol {TOL_SEG[1]} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("segment_softmax_sums disagrees with its plain "
+                         "version on the loop-closure drive, or saw no more "
+                         "than 4104 groups")
+    vals, gid, g_cap = last["segment_sums"]
+    err, err_ord, ok = check_segment_sums(vals, gid, g_cap)
+    log(f"[lc] K4 at the drive's last widest call: E={len(gid)}, "
+        f"{int(gid.max()) + 1} groups, g_cap={g_cap}: max_abs_err="
+        f"{err:.3e} tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]}; against the "
+        f"row-order reference {err_ord:.3e} (must be 0) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("segment_sums disagrees with its plain version or "
+                         "the row-order reference on the loop-closure drive")
+    torch.cuda.synchronize()
+
+
+def check_ba_global_syncs(out):
+    """One ba_global call on the largest inputs of the full drive under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    inside it raises."""
+    import torch
+    from dpvo_tpu_torch.ops import ba
+    args, kw = out["ba_global_args"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses, patches = ba.ba_global(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(poses).all() and torch.isfinite(patches).all())
+    log(f"[lc] ba_global under sync debug mode \"error\": {args[6].shape[0]}"
+        f" edges ({int(args[9].sum())} valid), n_cap={kw['n_cap']}, "
+        f"k_cap={kw['k_cap']}: no host synchronisation, finite "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("ba_global gave non-finite poses or depths")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dpvo_tpu_torch.ops import _cuda
-    phases = ("kernels", "agree", "agree_bf16", "engine", "bench")
+    phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "bench")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -1147,6 +1458,11 @@ def main(argv):
         drive_engine(dev, "retain")
         with corr_version(12):
             raw = drive_engine(dev, "retain")
+    if run("lc"):
+        t0 = time.perf_counter()
+        phase_lc_agreement(dev)
+        check_ba_global_syncs(drive_lc(dev))
+        log(f"[lc] phase {time.perf_counter() - t0:.1f} s")
     if run("bench"):
         bench = phase_bench(dev)
     if only is not None:

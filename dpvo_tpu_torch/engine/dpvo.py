@@ -24,6 +24,14 @@ Keyframe decisions come in two timings:
   and the schedule never depends on whether it has, so a drive gives the
   same structure on the CPU and on the card.  ``terminate()`` drops what is
   still pending, as the JAX engine does.
+
+Proximity loop closure (``LOOP_CLOSURE=True``, ``configs/default.yaml``):
+the patch rings hold ``MAX_EDGE_AGE`` frames; retired edges go to the
+inactive store; every ``GLOBAL_OPT_FREQ`` keyframes, and at
+``terminate()``, ``loop_closure.proximity`` proposes edges from old
+patches into recent frames; and an update whose active edges reach behind
+the removal window runs global BA over the active and inactive edges
+instead of local BA (once per keyframe count), after rescaling the scene.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from ..config import VOConfig
 from ..device import resolve_device
 from ..models.update import Update
 from ..models.vonet import Patchifier, normalize_images
-from ..ops import lie
+from ..loop_closure.proximity import propose_loop_edges
+from ..ops import ba, lie
 from ..utils.checkpoint import load_network
 from . import kernels
 from .state import allocate, allocate_host
@@ -47,10 +56,13 @@ class DPVO:
     def __init__(self, cfg: VOConfig, network=None, ht: int = 480,
                  wd: int = 640, viz: bool = False, seed: int = 0,
                  device="cuda"):
-        if cfg.LOOP_CLOSURE or cfg.CLASSIC_LOOP_CLOSURE or viz:
+        if cfg.CLASSIC_LOOP_CLOSURE:
             raise NotImplementedError(
-                "loop closure and the viewer are not ported yet (ROADMAP.md "
-                "Queue 1)")
+                "the classic loop-closure backend (CLASSIC_LOOP_CLOSURE) is "
+                "not ported yet (ROADMAP.md Queue 1 item 13)")
+        if viz:
+            raise NotImplementedError(
+                "the viewer is not ported yet (ROADMAP.md Queue 1 item 17)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ht, self.wd = ht, wd
@@ -62,7 +74,10 @@ class DPVO:
 
         # frame memory sizes
         self.mem = 36
-        self.pmem = self.mem
+        self.pmem = cfg.MAX_EDGE_AGE if cfg.LOOP_CLOSURE else self.mem
+        self.last_global_ba = -1000
+        # keyframe counts at which global BA has run (once per count)
+        self.ran_global_ba = np.zeros(100000, dtype=bool)
         self.ctype = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
 
         # fp32 islands (geometry, BA, fp32 parity runs) stay full fp32
@@ -169,12 +184,16 @@ class DPVO:
         kernels.append_edges(self.ds, self._dev(kk_new.astype(np.int32)),
                              self._dev(jj_new.astype(np.int32)), s, self.M)
 
-    def remove_factors(self, mask):
-        """Drop the masked edges among the first e_num live ones.  The
-        device rows move by one permutation per frame: consecutive removals
-        compose on the host and flush before the next device use."""
+    def remove_factors(self, mask, store=False):
+        """Drop the masked edges among the first e_num live ones; with
+        ``store`` under loop closure, keep them in the inactive store for
+        global BA.  The device rows move by one permutation per frame:
+        consecutive removals compose on the host and flush before the next
+        device use."""
         e = self.hs.e_num
         mask = np.asarray(mask, bool)
+        if store and self.cfg.LOOP_CLOSURE and mask.any():
+            self._store_inactive(np.nonzero(mask)[0])
         keep = np.nonzero(~mask)[0]
         cnt = len(keep)
         perm = np.concatenate([keep, np.nonzero(mask)[0]]).astype(np.int64)
@@ -190,6 +209,24 @@ class DPVO:
             if len(perm) < len(prev):
                 perm = np.concatenate([perm, np.arange(len(perm), len(prev))])
             self._pending_perm = prev[perm]
+
+    def _store_inactive(self, idx):
+        """Append the live edges ``idx`` to the inactive store: indices on
+        the host, target/weight rows copied on the device (no fetch)."""
+        hs = self.hs
+        dest, cnt = hs.n_inac, len(idx)
+        cap = self.ds.target_inac.shape[0]
+        if dest + cnt > cap:
+            raise RuntimeError(f"inactive edge store overflow: {dest}+{cnt} "
+                               f"> {cap}; increase EDGE_CAPACITY_INAC")
+        # the gather reads the device rows in the host's current layout
+        self._flush_edge_permute()
+        kernels.store_inactive(self.ds, self._dev(idx.astype(np.int64)),
+                               dest)
+        hs.ii_inac = np.concatenate([hs.ii_inac, hs.ii[idx]])
+        hs.jj_inac = np.concatenate([hs.jj_inac, hs.jj[idx]])
+        hs.kk_inac = np.concatenate([hs.kk_inac, hs.kk[idx]])
+        hs.n_inac = dest + cnt
 
     def _flush_edge_permute(self):
         if self._pending_perm is None:
@@ -219,22 +256,79 @@ class DPVO:
     # --- core steps --------------------------------------------------------
 
     def update(self):
-        if self.hs.e_num == 0:       # no keyframe pair yet: nothing to solve
+        cfg, hs = self.cfg, self.hs
+        if hs.e_num == 0:            # no keyframe pair yet: nothing to solve
             return
         self._flush_edge_permute()
-        t0 = self.n - self.cfg.OPTIMIZATION_WINDOW \
-            if self.is_initialized else 1
-        cand = self._candidate() if self.cfg.ASYNC_KEYFRAME else None
+        # global BA once per keyframe count, when the active edges reach
+        # behind the removal window (loop edges, or frame 0 at init)
+        run_global = (cfg.LOOP_CLOSURE and not self.ran_global_ba[self.n]
+                      and (hs.ii[:hs.e_num]
+                           < self.n - cfg.REMOVAL_WINDOW - 1).any())
+        t0 = self.n - cfg.OPTIMIZATION_WINDOW if self.is_initialized else 1
+        cand = self._candidate() if cfg.ASYNC_KEYFRAME else None
         kernels.update_step(
-            self.ds, self.update_mod, self.hs.e_num, max(t0, 1), self.n,
+            self.ds, self.update_mod, hs.e_num, max(t0, 1), self.n,
             M=self.M, pmem=self.pmem, mem=self.mem, n_cap=self.n_cap,
-            k_cap=self.k_cap, iterations=2)
+            k_cap=self._update_k_cap(), iterations=2,
+            run_ba=not run_global)
         if cand is not None:
-            # the candidate's magnitude on the post-BA poses, queued
+            # the candidate's magnitude on the poses of this update step
+            # (after local BA, or before global BA), queued
             a, b, tcand = cand
             self._mag_pending.append((kernels.flowmag_two(
                 self.ds.poses, self.ds.patches, self.ds.intrinsics, a, b),
                 tcand))
+        if run_global:
+            self._run_global_ba()
+
+    def _update_k_cap(self):
+        """The patch capacity of an update (its groups are k_cap + 8):
+        ``k_cap``, or under loop closure room for every patch of every
+        frame the live edges leave from, since loop edges reach frames far
+        behind the removal window."""
+        if not self.cfg.LOOP_CLOSURE:
+            return self.k_cap
+        frames = np.count_nonzero(np.bincount(self.hs.ii[:self.hs.e_num]))
+        return max(self.k_cap,
+                   1 << math.ceil(math.log2(frames * self.M + 8)))
+
+    def _run_global_ba(self):
+        """Global BA over the inactive and active edges, padded to a power
+        of two, after ``normalize``: ``ops.ba.ba_global`` when the window
+        from the oldest active source frame spans 64 pose blocks or more,
+        else ``ops.ba.ba_iterative``."""
+        hs, ds = self.hs, self.ds
+        e = hs.e_num
+        ii = np.concatenate([hs.ii_inac, hs.ii[:e]])
+        jj = np.concatenate([hs.jj_inac, hs.jj[:e]])
+        kk = np.concatenate([hs.kk_inac, hs.kk[:e]])
+
+        self.normalize()
+
+        E = len(ii)
+        cap = 1 << math.ceil(math.log2(max(E, 1024)))
+        pad = np.zeros(cap - E, np.int64)
+        t_p, w_p = kernels.concat_edge_tw(ds, hs.n_inac, e, cap)
+        t0 = int(hs.ii[:e].min())
+        n_cap = 1 << math.ceil(math.log2(max(self.n - t0 + 1, 16)))
+        k_cap = 1 << math.ceil(math.log2(
+            max(len(np.unique(kk)) + 8, 1024)))
+        ba_fn = ba.ba_global if n_cap >= 64 else ba.ba_iterative
+        ds.poses, ds.patches = ba_fn(
+            ds.poses, ds.patches, ds.intrinsics[0], t_p, w_p, 1e-4,
+            *(self._dev(np.concatenate([a, pad])) for a in (ii, jj, kk)),
+            self._dev(np.arange(cap) < E), t0, self.n, n_cap=n_cap,
+            k_cap=k_cap, iterations=2)
+        self.ran_global_ba[self.n] = True
+
+    def normalize(self):
+        """Rescale depths and poses (``kernels.normalize_scene``) and the
+        deltas of removed frames by the same device scalar: no host
+        fetch."""
+        s = kernels.normalize_scene(self.ds, self.n, self.M)
+        for t, (t0, dP) in self.hs.delta.items():
+            self.hs.delta[t] = (t0, lie.se3_scale(dP, s))
 
     def _motionmag_edges(self, i, j):
         hs = self.hs
@@ -331,10 +425,14 @@ class DPVO:
                                           ds.intrinsics, a, b)
                 self._keyframe_apply(float(mag), tcand)
 
-        # retire edges outside the removal window
+        # retire edges outside the removal window; under loop closure the
+        # loop edges into the optimization window stay
         e = hs.e_num
-        self.remove_factors((hs.kk[:e] // self.M)
-                            < self.n - cfg.REMOVAL_WINDOW)
+        to_remove = (hs.kk[:e] // self.M) < self.n - cfg.REMOVAL_WINDOW
+        if cfg.LOOP_CLOSURE:
+            to_remove &= ~(((hs.jj[:e] - hs.ii[:e]) > 30)
+                           & (hs.jj[:e] > self.n - cfg.OPTIMIZATION_WINDOW))
+        self.remove_factors(to_remove, store=True)
         self._flush_edge_permute()
 
     def motion_probe(self):
@@ -343,6 +441,10 @@ class DPVO:
         return float(kernels.motion_probe(
             self.ds, self.update_mod, kk // self.M, jj, kk, M=self.M,
             pmem=self.pmem, mem=self.mem))
+
+    def edges_loop(self):
+        """Loop-closure edge proposals: (kk, jj) numpy arrays."""
+        return propose_loop_edges(self)
 
     # --- main entry --------------------------------------------------------
 
@@ -384,12 +486,19 @@ class DPVO:
         hs.counter += 1
         if self.n > 0 and not self.is_initialized:
             if self.motion_probe() < 2.0:
-                hs.delta[hs.counter - 1] = (hs.counter - 2,
-                                            lie.se3_identity())
+                hs.delta[hs.counter - 1] = (
+                    hs.counter - 2, lie.se3_identity(device=self.device))
                 return
 
         self.n += 1
         self.m += self.M
+
+        if (cfg.LOOP_CLOSURE
+                and self.n - self.last_global_ba >= cfg.GLOBAL_OPT_FREQ):
+            lkk, ljj = self.edges_loop()
+            if len(lkk) > 0:
+                self.last_global_ba = self.n
+                self.append_factors(lkk, ljj)
 
         # forward + backward factors in one append
         kf, jf = self._DPVO__edges_forw()
@@ -422,7 +531,12 @@ class DPVO:
     @torch.no_grad()
     def terminate(self):
         """-> (poses (T, 7) xyz+quat numpy, tstamps (T,))."""
+        if self.cfg.LOOP_CLOSURE:
+            lkk, ljj = self.edges_loop()
+            if len(lkk) > 0:
+                self.append_factors(lkk, ljj)
         for _ in range(12):
+            self.ran_global_ba[self.n] = False
             self.update()
         # lagged decisions still pending never apply
         self._mag_pending.clear()

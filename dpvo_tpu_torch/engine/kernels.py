@@ -17,6 +17,8 @@ every row it sees is live.
 - ``compact_frames``, ``append_edges``, ``permute_edges``,
   ``shift_edge_indices``, ``relative_pose`` — keyframe merge and edge
   table bookkeeping;
+- ``store_inactive``, ``concat_edge_tw``, ``normalize_scene`` — the
+  inactive edge store and the scene rescale of global BA (loop closure);
 - ``point_cloud`` — world points at the patch centres, for the exports.
 """
 from __future__ import annotations
@@ -281,6 +283,37 @@ def shift_edge_indices(ds: DeviceState, k, M):
 def relative_pose(poses, k):
     """dP = poses[k] * poses[k-1]^-1."""
     return lie.se3_mul(poses[k], lie.se3_inv(poses[max(k - 1, 0)]))
+
+
+def store_inactive(ds: DeviceState, idx, dest):
+    """Copy the target/weight rows ``idx`` (retired edges) into the
+    inactive store at ``dest``."""
+    cnt = idx.shape[0]
+    ds.target_inac[dest:dest + cnt] = ds.target[idx]
+    ds.weight_inac[dest:dest + cnt] = ds.weight[idx]
+
+
+def concat_edge_tw(ds: DeviceState, n_inac, e, cap):
+    """The inactive then the active target/weight rows, zero-padded to
+    ``cap`` rows: (cap, 2) each."""
+    pad = ds.target.new_zeros((cap - n_inac - e, 2))
+    return (torch.cat([ds.target_inac[:n_inac], ds.target[:e], pad]),
+            torch.cat([ds.weight_inac[:n_inac], ds.weight[:e], pad]))
+
+
+def normalize_scene(ds: DeviceState, n, M):
+    """Rescale the scene before global BA: s = mean inverse depth of the
+    live patches; depths /= s, translations *= s, and the live poses are
+    re-anchored to the first frame.  Returns s, a device scalar (1 where
+    the mean is not finite and positive: a where, not a host branch)."""
+    live = ds.patches[:n * M, 2]
+    s_raw = live.sum() / max(live.numel(), 1)
+    s = torch.where(torch.isfinite(s_raw) & (s_raw > 0), s_raw, 1.0)
+    ds.patches[:n * M, 2] = live / s
+    poses = ds.poses[:n].clone()
+    poses[:, :3] *= s
+    ds.poses[:n] = lie.se3_mul(poses, lie.se3_inv(poses[0])[None])
+    return s
 
 
 def point_cloud(poses, patches, intrinsics, ix):

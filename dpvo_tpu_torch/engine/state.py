@@ -9,10 +9,12 @@ rebuilt arrays):
   the fmap rings are stored zero-padded (``ops.corr_cuda.padded_hw``) so
   the correlation kernel reads whole tap windows with no bounds logic;
 - the active edge table (hidden state, target, weight, and device twins
-  of the host ii/jj/kk) with the first ``e_num`` rows live.
+  of the host ii/jj/kk) with the first ``e_num`` rows live;
+- the inactive edge store of global BA (loop closure): the target and
+  weight rows of retired edges, the first ``n_inac`` live.
 
-The host owns the edge bookkeeping (numpy).  The loop-closure stores
-(inactive edges, points) come with loop closure (ROADMAP.md).
+The host owns the edge bookkeeping (numpy), the inactive edges' indices
+included.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ class DeviceState:
     ejj: Any          # (E_cap,) i32
     ekk: Any          # (E_cap,) i32
 
+    target_inac: Any  # (EDGE_CAPACITY_INAC, 2) f32 — retired edges
+    weight_inac: Any  # (EDGE_CAPACITY_INAC, 2) f32
+
 
 @dataclass
 class HostState:
@@ -58,6 +63,12 @@ class HostState:
     jj: np.ndarray | None = None
     kk: np.ndarray | None = None
     e_num: int = 0
+    # the inactive edge store (global BA): indices here, target/weight
+    # rows on the device; n_inac rows filled
+    ii_inac: np.ndarray | None = None
+    jj_inac: np.ndarray | None = None
+    kk_inac: np.ndarray | None = None
+    n_inac: int = 0
     # relative poses of removed frames: {t1: (t0, dP (7,) tensor)}
     delta: dict = field(default_factory=dict)
 
@@ -89,6 +100,8 @@ def allocate(cfg: VOConfig, ht: int, wd: int, P: int, pmem: int, mem: int,
         eii=z(E, dtype=torch.int32),
         ejj=z(E, dtype=torch.int32),
         ekk=z(E, dtype=torch.int32),
+        target_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
+        weight_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
     )
 
 
@@ -99,4 +112,7 @@ def allocate_host(cfg: VOConfig) -> HostState:
     hs.ii = np.zeros((E,), np.int32)
     hs.jj = np.zeros((E,), np.int32)
     hs.kk = np.zeros((E,), np.int32)
+    hs.ii_inac = np.zeros((0,), np.int32)
+    hs.jj_inac = np.zeros((0,), np.int32)
+    hs.kk_inac = np.zeros((0,), np.int32)
     return hs

@@ -1,7 +1,9 @@
 """Inference bundle adjustment: Gauss-Newton with a Schur complement over
 keyframe poses (6-dof) and per-patch inverse depths (1-dof).
 
-Counterpart of ``dpvo_tpu/ops/ba.py::ba_iterative``: the reference's
+Counterpart of ``dpvo_tpu/ops/ba.py``'s ``ba_iterative`` (the dense window
+solve of local BA) and ``ba_global`` (the matrix-free Schur solve with
+block-Jacobi PCG of global BA).  ``ba_iterative``: the reference's
 robust masks (residual < 128 px, Z > 0.2, +-64 px in bounds), damping
 ``S += diag(1e-4 * S + 1)``, a finite-guarded Cholesky solve that skips the
 update when it fails, and the depth reset (d > 20 -> 1, floor 1e-4).
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import agg_cuda, lie
-from .scatter import INT_MAX
+from .scatter import INT_MAX, compactify
 
 
 def _edge_terms_center(poses, ctr, fx, fy, cx, cy, target, ii, jj, kk,
@@ -191,4 +193,168 @@ def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
         patches[:, 2] = torch.where(hit_k[:, None, None], d_k[:, None, None],
                                     patches[:, 2])
         ctr[:, 2] = torch.where(hit_k, d_k, ctr[:, 2])
+    return poses, patches
+
+
+# ---------------------------------------------------------------------------
+# Scalable global BA
+# ---------------------------------------------------------------------------
+
+def _seg_sum(data, ids, n):
+    """Per-segment sums of the rows of ``data`` by ``ids`` in [0, n]; id n
+    is a trash segment, dropped (``jax.ops.segment_sum`` drops ids out of
+    range)."""
+    out = data.new_zeros((n + 1,) + data.shape[1:])
+    return out.index_add_(0, ids, data)[:n]
+
+
+def _rows_dot(a, J):
+    """(E, 2) x (E, 2, 6) -> (E, 6): sum_r a[e, r] J[e, r, :]."""
+    return (a[:, :, None] * J).sum(1)
+
+
+def ba_global(poses, patches, intrinsics, target, weight, lmbda,
+              ii, jj, kk, valid, t0, t1, n_cap, k_cap, iterations=2,
+              cg_iters=48):
+    """Global BA over active + inactive edges: the masks, damping and
+    retractions of ``ba_iterative``, with nothing densified over the pose
+    window.  The pose-depth coupling stays a per-patch block ``Ei (k_cap,
+    6)`` (all edges of a patch share its host frame) plus a per-edge block
+    ``Ej (E, 6)``; the damped Schur system is solved by ``cg_iters``
+    iterations of block-Jacobi preconditioned conjugate gradients, with
+    ``S @ x`` evaluated from per-edge products and segment sums.
+
+    Same arguments as ``ba_iterative`` (t0, t1 host ints); returns
+    (poses', patches') without touching the inputs.  Runs with no host
+    synchronisation: the step sizes and the finiteness guard are
+    ``torch.where``s, the 6x6 inverses ``torch.linalg.inv_ex``."""
+    poses = poses.float()
+    patches = patches.float().clone()
+    target = target.float()
+    weight = weight.float()
+    fx, fy, cx, cy = intrinsics.float().unbind()
+    dev = poses.device
+    K = patches.shape[0]
+    P = patches.shape[-1]
+    ii, jj, kk = ii.long(), jj.long(), kk.long()
+
+    kx, ku = compactify(torch.where(valid, kk, INT_MAX), k_cap)
+    k_real = kx != INT_MAX
+    # gathers by ku clamp ku == k_cap (an element past the uniques), as
+    # JAX's gathers do; the sums drop it into the trash segment
+    kuc = ku.clamp(max=k_cap - 1)
+    kx_c = kx.long().clamp(0, K - 1)
+    # the patches the depth retraction writes; the rest go to slot K
+    dst = torch.where(k_real, kx_c, K)
+    hit_k = torch.zeros(K + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, dst, True)[:K]
+    ctr = patches[:, :, P // 2, P // 2].clone()             # (K, 3)
+
+    li, lj = ii - t0, jj - t0
+    vi = (li >= 0) & (li < n_cap) & valid
+    vj = (lj >= 0) & (lj < n_cap) & valid
+    lic, ljc = li.clamp(0, n_cap - 1), lj.clamp(0, n_cap - 1)
+    # host-frame pose block of each unique patch (every edge of a patch
+    # shares ii = kk // M); an empty segment reads 0, as JAX's clipped
+    # segment_max does
+    li_k = torch.zeros(k_cap + 1, dtype=torch.int64, device=dev)
+    li_k.scatter_reduce_(0, ku, torch.where(valid, lic, 0), "amax",
+                         include_self=False)
+    li_k = li_k[:k_cap].clamp(0, n_cap - 1)
+
+    pose_slot = torch.arange(poses.shape[0], device=dev)
+    lp = pose_slot - t0
+    free = ((lp >= 0) & (pose_slot < t1))[:, None]
+    lp_c = lp.clamp(0, n_cap - 1)
+    eye6 = torch.eye(6, device=dev)
+
+    for _ in range(iterations):
+        r, mask, Ji, Jj, Jz = _edge_terms_center(
+            poses, ctr, fx, fy, cx, cy, target, ii, jj, kk)
+        w = mask[:, None] * weight * valid[:, None]          # (E, 2)
+        # signed, visibility-masked pose Jacobians (-Ji at the source)
+        Jim = -Ji * vi[:, None, None]
+        Jjm = Jj * vj[:, None, None]
+        z = w * Jz
+
+        # depth diagonal and rhs per unique patch
+        C = _seg_sum((z * Jz).sum(1), ku, k_cap)
+        u = _seg_sum((z * r).sum(1), ku, k_cap)
+        Q = 1.0 / (C + lmbda)
+        # compressed coupling blocks
+        Ei = _seg_sum(_rows_dot(z, Jim), ku, k_cap)
+        Ej = _rows_dot(z, Jjm)                               # (E, 6)
+
+        # pose rhs and the 6x6 diagonal blocks of S
+        wr = w * r
+        v_b = (_seg_sum(_rows_dot(wr, Jim), lic, n_cap)
+               + _seg_sum(_rows_dot(wr, Jjm), ljc, n_cap))
+        bb = (_seg_sum((w[:, :, None, None] * Jim[:, :, :, None]
+                        * Jim[:, :, None, :]).sum(1), lic, n_cap)
+              + _seg_sum((w[:, :, None, None] * Jjm[:, :, :, None]
+                          * Jjm[:, :, None, :]).sum(1), ljc, n_cap))
+        ee = (_seg_sum(Q[:, None, None] * Ei[:, :, None] * Ei[:, None, :],
+                       li_k, n_cap)
+              + _seg_sum(Q[kuc][:, None, None] * Ej[:, :, None]
+                         * Ej[:, None, :], ljc, n_cap))
+        Sblk = bb - ee
+        damp = 1e-4 * torch.diagonal(Sblk, dim1=1, dim2=2) + 1.0
+        Minv = torch.linalg.inv_ex(Sblk + torch.diag_embed(damp)
+                                   + 1e-8 * eye6)[0]
+
+        def Sx(x):
+            """(n_cap, 6) -> (S + damp I) x, matrix-free."""
+            xj = x[ljc]
+            u1 = ((Jim * x[lic][:, None, :]).sum(-1)
+                  + (Jjm * xj[:, None, :]).sum(-1))          # (E, 2)
+            wu = w * u1
+            bx = (_seg_sum(_rows_dot(wu, Jim), lic, n_cap)
+                  + _seg_sum(_rows_dot(wu, Jjm), ljc, n_cap))
+            tk = ((Ei * x[li_k]).sum(-1)
+                  + _seg_sum((Ej * xj).sum(-1), ku, k_cap))
+            yk = Q * tk
+            cx_ = (_seg_sum(Ei * yk[:, None], li_k, n_cap)
+                   + _seg_sum(Ej * yk[kuc][:, None], ljc, n_cap))
+            return bx - cx_ + damp * x
+
+        def precond(v):
+            return (Minv * v[:, None, :]).sum(-1)
+
+        # rhs y = v - E Q u, then preconditioned CG from 0
+        tu = Q * u
+        rr = v_b - (_seg_sum(Ei * tu[:, None], li_k, n_cap)
+                    + _seg_sum(Ej * tu[kuc][:, None], ljc, n_cap))
+        x = torch.zeros_like(rr)
+        zz = precond(rr)
+        p = zz
+        for _ in range(cg_iters):
+            Ap = Sx(p)
+            rz = (rr * zz).sum()
+            denom = (p * Ap).sum()
+            alpha = torch.where(denom.abs() > 1e-12, rz / denom, 0.0)
+            x = x + alpha * p
+            rr = rr - alpha * Ap
+            z2 = precond(rr)
+            beta = torch.where(rz.abs() > 1e-12, (rr * z2).sum() / rz, 0.0)
+            p = z2 + beta * p
+            zz = z2
+        ok = torch.isfinite(x).all()
+        dX = torch.where(ok, x, 0.0)
+
+        # depth back-substitution dZ = Q (u - E^T dX)
+        tk = ((Ei * dX[li_k]).sum(-1)
+              + _seg_sum((Ej * dX[ljc]).sum(-1), ku, k_cap))
+        dZ = torch.where(ok, Q * (u - tk), 0.0)
+
+        # retractions (as in ba_iterative)
+        dxi = torch.where(free, dX[lp_c], 0.0)
+        poses = torch.where(free, lie.se3_retr(poses, dxi), poses)
+        d_old = patches[kx_c, 2, 0, 0]
+        d_new = d_old + dZ
+        d_new = torch.where(d_new > 20.0, 1.0, d_new).clamp(min=1e-4)
+        d_k = patches.new_zeros(K + 1)
+        d_k[dst] = torch.where(k_real, d_new, d_old)
+        patches[:, 2] = torch.where(hit_k[:, None, None], d_k[:K, None, None],
+                                    patches[:, 2])
+        ctr[:, 2] = torch.where(hit_k, d_k[:K], ctr[:, 2])
     return poses, patches

@@ -1,6 +1,9 @@
-"""Group metadata for the compact segment path (plain PyTorch).
+"""Group metadata for the compact segment path, and ``compactify``
+(plain PyTorch).
 
-Counterpart of ``dpvo_tpu/ops/scatter.py::group_meta_compact_device``.
+Counterpart of ``dpvo_tpu/ops/scatter.py::group_meta_compact_device`` and
+``compactify``.  Both run at static shapes with no host synchronisation
+(no ``torch.unique``, ``torch.nonzero`` or boolean-mask indexing).
 """
 from __future__ import annotations
 
@@ -28,3 +31,25 @@ def group_meta_compact(ids, order=None):
     gid_orig = torch.empty(E, dtype=torch.int64, device=ids.device)
     gid_orig[perm] = gid_sorted.long()
     return perm, gid_sorted, gid_orig
+
+
+def compactify(ix, size, fill=INT_MAX):
+    """Static-shape counterpart of ``torch.unique(ix, return_inverse=True)``.
+
+    Returns (kx, ku): ``kx`` (size,) the sorted unique values of ``ix``
+    (E,), padded with ``fill``; ``ku`` (E,) int64 the slot of each element
+    in ``kx``.  Uniques past ``size`` are dropped and their elements get
+    slot ``size`` (one past the end), as a search of ``kx`` would give.
+    One sort, the run heads and a scatter into ``size + 1`` slots, the
+    last of which takes the writes of non-head and dropped elements."""
+    E = ix.shape[0]
+    s, perm = torch.sort(ix)
+    head = torch.ones(E, dtype=torch.bool, device=ix.device)
+    head[1:] = s[1:] != s[:-1]
+    rank = (torch.cumsum(head, 0) - 1).clamp(max=size)
+    slot = torch.where(head, rank, size)
+    kx = torch.full((size + 1,), fill, dtype=ix.dtype, device=ix.device)
+    kx.scatter_(0, slot, s)
+    ku = torch.empty(E, dtype=torch.int64, device=ix.device)
+    ku[perm] = rank
+    return kx[:size], ku

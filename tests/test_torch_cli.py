@@ -2,7 +2,9 @@
 
 - ``demo_torch.main`` on a directory of PNGs written by ``cv2``, with
   ``--save_trajectory``, ``--save_ply`` and ``--plot``, the files parsed
-  back;
+  back; and with ``--config configs/default.yaml`` (loop closure on);
+- the engine at configs/default.yaml, and what is not ported yet (the
+  ``.pth`` reader, the classic loop-closure backend, the viewer) raising;
 - ``bench_torch.run_regime`` with a tiny config and one short window, and
   ``bench_line``'s keys against ``bench.py``'s;
 - ``utils.plot_utils`` against ``dpvo_tpu.utils.plot_utils`` byte for
@@ -87,14 +89,60 @@ def test_demo_torch_on_an_image_directory(tmp_path, monkeypatch):
     assert (tmp_path / "colmap_saves" / "run" / "images.txt").exists()
 
 
+def test_demo_torch_default_config_runs_loop_closure(tmp_path, monkeypatch):
+    """``--config configs/default.yaml`` (LOOP_CLOSURE true) with the tiny
+    opts: the loop-closure engine tracks every frame to finite poses."""
+    cv2 = pytest.importorskip("cv2")
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    base = np.random.default_rng(6).integers(0, 255, (96, 256, 3), np.uint8)
+    n = 12
+    for t in range(n):
+        cv2.imwrite(str(frames / f"{t:04d}.png"),
+                    np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]))
+    calib = tmp_path / "calib.txt"
+    calib.write_text("64.0 64.0 64.0 48.0")
+    monkeypatch.chdir(tmp_path)
+    demo = load_script("demo_torch")
+    assert demo.main(["--imagedir", str(frames), "--calib", str(calib),
+                      "--stride", "1", "--device", "cpu", "--name", "lc",
+                      "--config", str(ROOT / "configs" / "default.yaml"),
+                      "--save_trajectory", "--opts", *TINY_OPTS]) == 0
+    traj = np.loadtxt(tmp_path / "saved_trajectories" / "lc.txt")
+    assert traj.shape == (n, 8) and np.isfinite(traj).all()
+
+
+def test_default_config_constructs_with_loop_closure():
+    """configs/default.yaml turns loop closure on: the patch rings hold
+    MAX_EDGE_AGE = 1000 frames and the inactive store is allocated."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig().merge_yaml(str(ROOT / "configs" / "default.yaml"))
+    assert cfg.LOOP_CLOSURE and not cfg.CLASSIC_LOOP_CLOSURE
+    slam = DPVO(cfg, ht=96, wd=128, device="cpu")
+    assert slam.pmem == cfg.MAX_EDGE_AGE == 1000
+    assert slam.ds.gmap.shape[0] == 1000 * cfg.PATCHES_PER_FRAME
+    assert slam.ds.target_inac.shape == (cfg.EDGE_CAPACITY_INAC, 2)
+    assert slam.hs.n_inac == 0 and not slam.ran_global_ba.any()
+
+
 def test_demo_torch_rejects_what_is_not_ported(tmp_path):
-    """.pth weights and the viewer raise, naming what is missing."""
+    """.pth weights, the classic loop-closure backend and the viewer raise,
+    naming what is missing and the ROADMAP item that ports it."""
     with pytest.raises(NotImplementedError, match="item 14"):
         checkpoint.load_network(str(tmp_path / "weights.pth"))
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
     with pytest.raises(NotImplementedError, match="viewer"):
         DPVO(VOConfig(), ht=96, wd=128, viz=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        DPVO(VOConfig(LOOP_CLOSURE=True), ht=96, wd=128, viz=True,
+             device="cpu")
+    for lc in (False, True):
+        with pytest.raises(NotImplementedError,
+                           match="CLASSIC_LOOP_CLOSURE.*item 13"):
+            DPVO(VOConfig(CLASSIC_LOOP_CLOSURE=True, LOOP_CLOSURE=lc),
+                 ht=96, wd=128, device="cpu")
 
 
 def test_bench_torch_run_regime_tiny():

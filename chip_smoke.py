@@ -64,19 +64,34 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    profiled frames with global BA, K2 at the drive's last update on the
    96000-row gmap ring); then one ``ba_global`` call at that drive's
    largest shapes under ``torch.cuda.set_sync_debug_mode("error")``;
-6. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
+6. train (``train_torch.py``'s step, which runs no hand-written kernel:
+   the phase fails if any launches): card against CPU in fp32 with TF32
+   off (N=5, 64x96, M=4, 3 iterations, the same flax-like seeded weights
+   and batches): a structure-only step, a full step and an eval step, with
+   loss, metrics, gnorm and each parameter's update, and the same on the
+   card with TF32 on as the control, which must break a limit; then
+   ``configs/tartan_train.yaml``'s step at full width (480x640, N=15, M=80,
+   18 iterations, 18000 rollout edges, batch 1, bf16 autocast) on a
+   synthetic clip whose GT poses and disparities induce its images' flow:
+   one structure-only step and three full steps (ms, loss, gnorm,
+   parameter change, peak memory each), one full step under
+   ``torch.profiler`` (device busy and idle share, kernels per step, the
+   kernels with the most device time), one eval rollout and ``validate``
+   on it;
+7. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
    default configuration (lagged keyframing), 30 warm frames and two
    40-frame windows each, then 5 profiled frames: ms/frame per window,
    live edges, the device idle share, launch counts, the box fit share at
    the last update; the merge drive's TUM trajectory and PLY map are
    written to a temporary directory and read back;
-7. the kernels line (one JSON object; ``launches`` from the bench merge
+8. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, bench)
+``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
+bench)
 runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -963,10 +978,10 @@ def last_calls():
         (corr_cuda.corr_enc, corr_cuda.corr_fused,
          agg_cuda.segment_softmax_sums, agg_cuda.segment_sums) = old
 
-def device_profile(prof, wall_ms, n_frames, top=8):
+def device_profile(prof, wall_ms, n_frames, top=8, unit="frame"):
     """Device busy time (the union of the CUDA kernel intervals the
     profiler saw), idle share of the wall time, and the kernels with the
-    most device time, per frame."""
+    most device time, per frame (or per ``unit``)."""
     from torch.autograd import DeviceType
     kern = sorted((e for e in prof.events()
                    if e.device_type == DeviceType.CUDA),
@@ -982,9 +997,9 @@ def device_profile(prof, wall_ms, n_frames, top=8):
     busy_ms = busy / 1e3 / n_frames
     frame_ms = wall_ms / n_frames
     tops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return (f"{frame_ms:.2f} ms/frame wall, device busy {busy_ms:.2f} "
-            f"ms/frame, idle {1 - busy_ms / frame_ms:.1%}, "
-            f"{len(kern) / n_frames:.0f} kernels/frame; top: "
+    return (f"{frame_ms:.2f} ms/{unit} wall, device busy {busy_ms:.2f} "
+            f"ms/{unit}, idle {1 - busy_ms / frame_ms:.1%}, "
+            f"{len(kern) / n_frames:.0f} kernels/{unit}; top: "
             + "; ".join(f"{n[:48]} {v / 1e3 / n_frames:.3f} ms"
                         for n, v in tops))
 
@@ -1410,13 +1425,269 @@ def check_ba_global_syncs(out):
         raise SystemExit("ba_global gave non-finite poses or depths")
 
 
+# --- phase 6: training -------------------------------------------------------
+
+# card against CPU at N=5, 64x96, M=4, 3 iterations, fp32 with TF32 off:
+# loss, metrics and gnorm rtol, set from the readings of one codebase on
+# two devices (worst 3.5e-5, 1.4e-4 and 4.3e-5 in three runs on an H100
+# 80GB HBM3 at 700 W) and below what the same run with TF32 on gives (the
+# control, which must break a limit: 1.7e-2 and 5.9e-2 read); per leaf,
+# the L2 share by which the two steps' parameter updates may differ (read
+# 2.9e-2 to 3.6e-2, 0.28-0.29 with TF32 on: Adam's first updates are
+# lr * sign(g) wherever |g| is at the rounding level)
+TOL_TRAIN = 1e-3
+TOL_TRAIN_UPDATE = 0.1
+TRAIN_SMALL = dict(N=5, H=64, W=96, M=4, iters=3)
+# configs/tartan_train.yaml's step
+TRAIN_FULL = dict(N=15, H=480, W=640, M=80, iters=18)
+TRAIN_EDGES = 18000   # its rollout's edge slots: 5120 at iteration 0
+TRAIN_FX = 320.0      # TartanAir's focal length at 640x480
+
+
+def train_clip(seed, N, H, W, roll=2, depth=2.0):
+    """One synthetic TartanAir-like clip as the readers return it (BGR
+    float images, world-from-camera poses, disparities, intrinsics, with
+    the 0.7 * q98 normalisation): a smooth texture rolled ``roll`` px per
+    frame, seen at constant depth by a camera moving sideways by
+    roll * depth / fx per frame, so the GT poses and disparities induce
+    exactly the images' flow."""
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(0, 255, (H, W + roll * N + 8, 3))
+    for axis in (0, 1):                       # a 5x5 box blur
+        tex = sum(np.roll(tex, k, axis=axis) for k in range(-2, 3)) / 5.0
+    images = np.stack([tex[:, roll * t:roll * t + W] for t in range(N)])
+    poses = np.zeros((N, 7), np.float32)
+    poses[:, 6] = 1.0
+    poses[:, 0] = np.arange(N) * roll * depth / TRAIN_FX * (W / 640.0)
+    disps = np.full((N, H, W), 1.0 / depth, np.float32)
+    s = 0.7 * np.quantile(disps, 0.98)
+    poses[:, :3] *= s
+    intr = np.tile(np.float32([TRAIN_FX * W / 640.0, TRAIN_FX * W / 640.0,
+                               W / 2.0, H / 2.0]), (N, 1))
+    return (images[None].astype(np.float32), poses[None], (disps / s)[None],
+            intr[None])
+
+
+def train_state(dev, seed, lr=8e-5, total=240000):
+    """Modules with the flax-like initialisers drawn on the CPU from
+    ``seed`` (so card and CPU share them), AdamW with the one-cycle
+    schedule, on ``dev``."""
+    import torch
+    from dpvo_tpu_torch.models.update import Update
+    from dpvo_tpu_torch.models.vonet import Patchifier, init_flax_like
+    from dpvo_tpu_torch.parallel import train_step as ts
+    gen = torch.Generator().manual_seed(seed)
+    p = init_flax_like(Patchifier(3), gen).to(dev)
+    u = init_flax_like(Update(3), gen).to(dev)
+    opt = ts.make_optimizer(ts.train_params(p, u), lr, total,
+                            weight_decay=1e-6, clip=10.0)
+    return ts.TrainState(p, u, opt)
+
+
+def train_batches(n, seed, N, H, W, M, iters, dev):
+    """``n`` prepared batches of one clip (``train_torch.prepare_batch``'s
+    draws from one numpy seed), on ``dev``."""
+    import train_torch
+    clip = train_clip(seed, N, H, W)
+    rng = np.random.default_rng(seed)
+    return [train_torch.to_device(train_torch.prepare_batch(
+        rng, *clip, M, iters), dev) for _ in range(n)]
+
+
+def params_of(state):
+    from dpvo_tpu_torch.parallel.train_step import train_params
+    return [p.detach().clone() for p in train_params(state.patchifier,
+                                                     state.update)]
+
+
+def train_agreement_run(d, tf32):
+    """A structure-only step, a full step and an eval step on ``d`` with
+    TF32 on or off (cuBLAS and cuDNN): (metrics per step, parameters
+    before, parameters after, parameter names)."""
+    import torch
+    from dpvo_tpu_torch.parallel import train_step as ts
+    cfg = TRAIN_SMALL
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        state = train_state(d, seed=3, lr=1e-4, total=100)
+        before = params_of(state)
+        batches = train_batches(3, 4, cfg["N"], cfg["H"], cfg["W"],
+                                cfg["M"], cfg["iters"], d)
+        metrics = []
+        for so, batch in zip((True, False), batches):
+            step = ts.make_train_step(steps=cfg["iters"], M=cfg["M"],
+                                      structure_only=so)
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        _, em = ts.make_eval_step(steps=cfg["iters"], M=cfg["M"])(
+            state, batches[2])
+        metrics.append({k: float(v) for k, v in em.items()})
+        names = [f"{pre}.{n}" for pre, m in state.modules().items()
+                 for n, _ in m.named_parameters()]
+        return metrics, before, params_of(state), names
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def train_errors(run, ref):
+    """The worst metric rel err of ``run`` against ``ref`` (name, step,
+    value; a non-finite metric reads inf) and the worst per-leaf parameter
+    update rel err (name, value)."""
+    (m_a, p0, p_a, names), (m_b, _, p_b, _) = run, ref
+    metric = ("", -1, 0.0)
+    for i, (a, b) in enumerate(zip(m_a, m_b)):
+        for k in b:
+            err = (abs(a[k] - b[k]) / max(abs(b[k]), 1e-5 / TOL_TRAIN)
+                   if np.isfinite(a[k]) else float("inf"))
+            if err > metric[2]:
+                metric = (k, i, err)
+    lr_sum = 1e-4 / 25 + 1e-4          # the first two one-cycle rates
+    upd = ("", 0.0)
+    for n, a, b, x0 in zip(names, p_a, p_b, p0):
+        if n.startswith("patchify.fnet.") and n.endswith(".bias") and (
+                n != "patchify.fnet.conv2.bias"):
+            continue          # an instance norm follows: exact gradient 0
+        da, db = a.cpu() - x0.cpu(), b - x0.cpu()
+        ref_n = max(float(db.norm()), 0.1 * lr_sum * db.numel() ** 0.5)
+        rel = float((da - db).norm()) / ref_n
+        if rel > upd[1]:
+            upd = (n, rel)
+    return metric, upd
+
+
+def train_agreement(dev):
+    """fp32, TF32 off: a structure-only step, a full step and an eval step
+    on the card against the same on the CPU, from the same weights and
+    batches; then the card with TF32 on, the control that must break a
+    limit."""
+    import torch
+    cfg = TRAIN_SMALL
+    cpu = train_agreement_run(torch.device("cpu"), False)
+    card = train_agreement_run(dev, False)
+    (k, i, worst), (n, upd) = train_errors(card, cpu)
+    if worst > TOL_TRAIN:
+        raise SystemExit(f"train step {i} {k}: card {card[0][i][k]} cpu "
+                         f"{cpu[0][i][k]} (rel err {worst:.3e})")
+    if upd > TOL_TRAIN_UPDATE:
+        raise SystemExit(f"train: parameter {n} moved differently on the "
+                         f"card ({upd:.3e} of its update)")
+    log(f"[train] agreement card vs CPU (N={cfg['N']}, {cfg['H']}x"
+        f"{cfg['W']}, M={cfg['M']}, {cfg['iters']} iterations, fp32, TF32 "
+        f"off; structure-only step, full step, eval step): worst metric "
+        f"rel err {worst:.3e} ({k}, step {i}; tol {TOL_TRAIN}), worst "
+        f"parameter update rel err {upd:.3e} ({n}; tol {TOL_TRAIN_UPDATE}); "
+        f"loss card {card[0][1]['loss']:.6f} cpu {cpu[0][1]['loss']:.6f}, "
+        f"gnorm card {card[0][1]['gnorm']:.6f} cpu "
+        f"{cpu[0][1]['gnorm']:.6f} OK")
+    (k, i, worst), (n, upd) = train_errors(
+        train_agreement_run(dev, True), cpu)
+    log(f"[train] control, the card with TF32 on vs CPU: worst metric rel "
+        f"err {worst:.3e} ({k}, step {i}; {worst / TOL_TRAIN:.1f}x tol), "
+        f"worst parameter update rel err {upd:.3e} ({n}; "
+        f"{upd / TOL_TRAIN_UPDATE:.1f}x tol)")
+    if worst <= TOL_TRAIN and upd <= TOL_TRAIN_UPDATE:
+        raise SystemExit("train: the limits do not catch TF32 in the fp32 "
+                         "rollout (the control stayed within them)")
+
+
+def train_full_width(dev):
+    """configs/tartan_train.yaml's step at full width with bf16 autocast:
+    one structure-only step, three full steps, one profiled full step, one
+    eval rollout and ``validate`` on it."""
+    import torch
+    from dpvo_tpu_torch.parallel import train_step as ts
+    from dpvo_tpu_torch.training.validate import validate
+    cfg = TRAIN_FULL
+    state = train_state(dev, seed=0)
+    batches = train_batches(6, 5, cfg["N"], cfg["H"], cfg["W"], cfg["M"],
+                            cfg["iters"], dev)
+    E = len(batches[0]["sch_ii"])
+    log(f"[train] full width: {cfg['H']}x{cfg['W']}, N={cfg['N']}, "
+        f"M={cfg['M']}, {cfg['iters']} iterations, batch 1, bf16 autocast, "
+        f"flax-like seeded weights; rollout edges {E}, live at iteration 0 "
+        f"{int(batches[0]['sch_active'][0].sum())}")
+    if E != TRAIN_EDGES:
+        raise SystemExit(f"train: the full-width rollout has {E} edges, "
+                         f"not {TRAIN_EDGES}")
+    steps = {so: ts.make_train_step(steps=cfg["iters"], M=cfg["M"],
+                                    structure_only=so, amp=True)
+             for so in (True, False)}
+    times = []
+    for i, so in enumerate((True, False, False, False)):
+        before = params_of(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = steps[so](state, batches[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = float(torch.sqrt(sum(((a - b).float() ** 2).sum() for a, b in
+                                     zip(params_of(state), before))))
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times.append(ms)
+        log(f"[train] step {i} ({'structure-only' if so else 'full'}): "
+            f"{ms:.1f} ms, loss {loss:.6f}, gnorm {gnorm:.6f}, flow_err "
+            f"{float(m['flow_err']):.4f}, tr {float(m['tr']):.5f}, ro "
+            f"{float(m['ro']):.5f}, parameter change (L2) {moved:.4e}, peak "
+            f"memory {peak:.2f} GiB")
+        if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+                and moved > 0):
+            raise SystemExit(f"train: step {i} gave loss {loss}, gnorm "
+                             f"{gnorm}, parameter change {moved}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = steps[False](state, batches[4])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    log(f"[train] profiled full step (loss {float(m['loss']):.6f}): "
+        + device_profile(prof, ms, 1, top=10, unit="step"))
+    eval_step = ts.make_eval_step(steps=cfg["iters"], M=cfg["M"], amp=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, em = eval_step(state, batches[5])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = validate(lambda s: {"poses": est[0].cpu().numpy()},
+                     [{"poses": batches[5]["poses"][0].cpu().numpy()}])
+    if not (torch.isfinite(est).all() and np.isfinite(stats["val/ate_mean"])):
+        raise SystemExit("train: the eval rollout gave non-finite poses")
+    log(f"[train] eval rollout {ms:.1f} ms: flow_err "
+        f"{float(em['flow_err']):.4f}, tr {float(em['tr']):.5f}; validate: "
+        f"{stats}")
+    log(f"[train] ms per full-width step: structure-only {times[0]:.1f} "
+        f"(first call), full {times[1]:.1f} (first) {times[2]:.1f} "
+        f"{times[3]:.1f}")
+
+
+def phase_train(dev):
+    """Training (``train_torch.py``'s step): no hand-written kernel may
+    launch, since the training path has none."""
+    from dpvo_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    before = dict(_cuda.launches)
+    train_agreement(dev)
+    train_full_width(dev)
+    if dict(_cuda.launches) != before:
+        raise SystemExit(f"train: hand-written kernels launched during the "
+                         f"training phase: {before} -> {_cuda.launches}")
+    log(f"[train] no hand-written kernel launched; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dpvo_tpu_torch.ops import _cuda
-    phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "bench")
+    phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
+              "bench")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -1463,6 +1734,8 @@ def main(argv):
         phase_lc_agreement(dev)
         check_ba_global_syncs(drive_lc(dev))
         log(f"[lc] phase {time.perf_counter() - t0:.1f} s")
+    if run("train"):
+        phase_train(dev)
     if run("bench"):
         bench = phase_bench(dev)
     if only is not None:

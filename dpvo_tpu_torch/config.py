@@ -117,3 +117,31 @@ class VOConfig:
         known = {f.name for f in dataclasses.fields(self)}
         return self.replace(**{k: v for k, v in data.items() if k in known})
 
+
+def load_train_config(path: str) -> dict:
+    """Training config: nested YAML dict with defaults in the sections
+    dataset/training/scheduler/model/loss/dataloader/validation; a user
+    section updates its defaults key by key (``train.py``'s loader)."""
+    import yaml
+    defaults: dict[str, Any] = {
+        "dataset": {"names": ["tartan"], "roots": ["datasets/TartanAir"],
+                    "n_frames": 15, "fmin": 16.0, "fmax": 60.0},
+        "training": {"steps": 240000, "lr": 8e-5, "weight_decay": 1e-6,
+                     "clip": 10.0, "batch_size": 1, "ckpt": None,
+                     "name": "dpvo_tpu", "iters": 18, "M": 80,
+                     "structure_warmup": 1000},
+        "scheduler": {"type": "onecycle", "pct_start": 0.01},
+        "model": {"patch_size": 3, "dim": 384},
+        "loss": {"flow_weight": 10.0, "pose_weight": 10.0,
+                 "so_weight": 1.0},
+        "dataloader": {"num_workers": 8, "prefetch": 4},
+        "validation": {"freq": 5000, "n_frames": 15},
+    }
+    with open(path) as f:
+        user = yaml.safe_load(f) or {}
+    for k, v in user.items():
+        if isinstance(v, dict) and k in defaults:
+            defaults[k].update(v)
+        else:
+            defaults[k] = v
+    return defaults

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.update import DIM, Update
+from ..models.update import DIM, Update, compact_meta_for
 from ..models.vonet import (Patchifier, image_gradient, normalize_images,
                             select_centroids)
 from ..ops import ba, graph, lie, projective as pops, scatter
@@ -206,7 +206,10 @@ def motion_probe(ds: DeviceState, update_mod: Update, ii, jj, kk, M, pmem,
     kk_mod = kk % (M * pmem)
     corr = _corr_act(ds, update_mod, coords, kk_mod, jj % mem)
     ctx = ds.imap[kk_mod].float()
-    _, delta, _ = update_mod(net, ctx, corr, ii, jj, kk)
+    valid = torch.ones(E, dtype=torch.bool, device=ii.device)
+    _, delta, _ = update_mod(net, ctx, corr, ii, jj, kk, valid,
+                             compact_meta=compact_meta_for(ii, jj, kk, valid),
+                             g_cap=E)
     return torch.quantile(torch.linalg.norm(delta, dim=-1), 0.5)
 
 

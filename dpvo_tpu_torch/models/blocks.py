@@ -1,9 +1,9 @@
 """Network building blocks (PyTorch).
 
 Counterpart of ``dpvo_tpu/models/blocks.py``: ``GatedResidual``,
-``LayerNorm1D`` and ``SoftAgg`` in its compact form.  The port is
-inference-only, so the gradient-surgery ops (``grad_clip`` etc.) are
-identities here and wait for training (ROADMAP.md).
+``LayerNorm1D``, ``SoftAgg`` (the compact form on group-sorted rows and the
+scatter form with a trash group) and the gradient-surgery ops ``grad_clip``,
+``grad_zero`` and ``grad_mag`` as ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
@@ -11,7 +11,60 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import agg_cuda
+from ..ops import agg_cuda, scatter
+
+GRAD_CLIP = 0.1
+
+
+class _GradClip(torch.autograd.Function):
+    """Identity forward; backward: NaN -> 0, then clamp to +-0.01."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.where(torch.isnan(g), 0.0, g).clamp(-0.01, 0.01)
+
+
+class _GradZero(torch.autograd.Function):
+    """Identity forward; backward: NaN -> 0 and |g| > GRAD_CLIP -> 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), 0.0, g)
+        return torch.where(g.abs() > GRAD_CLIP, 0.0, g)
+
+
+class _GradMag(torch.autograd.Function):
+    """Identity forward; backward prints the mean |grad| (a debug probe:
+    wrap a tensor to see the gradient magnitude arriving at it)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        print(f"grad_mag: {g.abs().mean().item()}")
+        return g
+
+
+def grad_clip(x):
+    return _GradClip.apply(x)
+
+
+def grad_zero(x):
+    return _GradZero.apply(x)
+
+
+def grad_mag(x):
+    return _GradMag.apply(x)
 
 
 class GatedResidual(nn.Module):
@@ -38,11 +91,16 @@ class LayerNorm1D(nn.LayerNorm):
 class SoftAgg(nn.Module):
     """Softmax attention pooling over groups, broadcast back to the rows.
 
-    Compact form: rows are sorted by group, the softmax sums land on one
-    row per GROUP (``ops.agg_cuda.segment_softmax_sums``), the output
-    projection ``h`` runs at group granularity, and one row gather
-    broadcasts back.  ``compact_meta`` = (perm, gid_sorted, gid_orig) from
-    ``ops.scatter.group_meta_compact``; ranks stay below ``g_cap``.
+    Compact form (``compact_meta`` = (perm, gid_sorted, gid_orig) from
+    ``ops.scatter.group_meta_compact``, ranks below ``g_cap``; the engine's):
+    rows are sorted by group, the softmax sums land on one row per GROUP
+    (``ops.agg_cuda.segment_softmax_sums``, which has no backward), the
+    output projection ``h`` runs at group granularity, and one row gather
+    broadcasts back.
+
+    Scatter form (``jx`` group ids in [0, num_groups), ``valid`` mask;
+    training's): invalid rows go to a trash group ``num_groups``, the softmax
+    weights are computed in fp32, and everything is differentiable.
     """
 
     def __init__(self, dim):
@@ -52,7 +110,16 @@ class SoftAgg(nn.Module):
         self.g = nn.Linear(dim, dim)
         self.h = nn.Linear(dim, dim)
 
-    def forward(self, x, compact_meta, g_cap):
+    def forward(self, x, jx=None, num_groups=None, valid=None,
+                compact_meta=None, g_cap=None):
+        if compact_meta is None:
+            if valid is not None:
+                jx = torch.where(valid, jx, num_groups)
+            S = num_groups + 1
+            f = self.f(x)
+            w = scatter.scatter_softmax(self.g(x).float(), jx, S)
+            y = scatter.scatter_sum(f * w.to(f.dtype), jx, S)
+            return self.h(y)[jx]
         perm, gid_sorted, gid_orig = compact_meta
         x_s = x[perm]
         f = self.f(x_s)

@@ -13,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import corr_cuda, graph, scatter
-from .blocks import GatedResidual, SoftAgg
+from .blocks import GatedResidual, SoftAgg, grad_clip
 
 DIM = 384
 
@@ -92,9 +92,13 @@ class Update(nn.Module):
 
         net, inp (E, DIM); corr (E, 882) interleaved, ("raw", feat) or
         ("enc", act) (see CorrDense);
-        ii, jj, kk (E,) int; valid (E,) bool.  ``nbrs`` (ix, jx) and
-        ``compact_meta`` (cm_kk, cm_ij) with ``g_cap`` are computed here
-        when not given (the engine shares one sort between them and BA).
+        ii, jj, kk (E,) int; valid (E,) bool.  ``nbrs`` (ix, jx) is computed
+        here when not given (the engine shares one sort between it, the
+        metadata and BA).  With ``compact_meta`` (cm_kk, cm_ij) and
+        ``g_cap`` the SoftAggs take the compact path (the engine's; the CUDA
+        kernel on the card, no backward); without, the differentiable
+        scatter path over ``compactify`` group ids (training's).  The ``d``
+        and ``w`` heads' gradients pass through ``grad_clip``.
         -> (net', delta (E, 2) fp32, weight (E, 2) fp32), invalid rows 0.
         """
         E = net.shape[0]
@@ -120,18 +124,24 @@ class Update(nn.Module):
         net_jx = net[jx.clamp(min=0)] * mask_jx
         net = net + self.c2_1(F.relu(self.c2_0(net_jx)))
 
-        if compact_meta is None:
-            compact_meta, g_cap = compact_meta_for(ii, jj, kk, valid), E
-        cm_kk, cm_ij = compact_meta
-        net = net + self.agg_kk(net, cm_kk, g_cap)
-        net = net + self.agg_ij(net, cm_ij, g_cap)
+        if compact_meta is not None:
+            cm_kk, cm_ij = compact_meta
+            net = net + self.agg_kk(net, compact_meta=cm_kk, g_cap=g_cap)
+            net = net + self.agg_ij(net, compact_meta=cm_ij, g_cap=g_cap)
+        else:
+            imax = scatter.INT_MAX
+            _, ku = scatter.compactify(torch.where(valid, kk.long(), imax), E)
+            pair = torch.where(valid, ii.long() * 12345 + jj.long(), imax)
+            _, pu = scatter.compactify(pair, E)
+            net = net + self.agg_kk(net, ku, E, valid)
+            net = net + self.agg_ij(net, pu, E, valid)
 
         net = self.gru_res1(self.gru_norm1(net))
         net = self.gru_res2(self.gru_norm2(net))
 
         hd = F.relu(net)
-        delta = self.d(hd).float()
-        w = torch.sigmoid(self.w(hd).float())
+        delta = grad_clip(self.d(hd).float())
+        w = torch.sigmoid(grad_clip(self.w(hd).float()))
 
         vm = valid[:, None]
         zero = torch.zeros((), device=net.device)

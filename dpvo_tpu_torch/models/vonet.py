@@ -1,8 +1,11 @@
-"""Patchifier and centroid selection (PyTorch).
+"""Patchifier, centroid selection and the flax-like initialisers (PyTorch).
 
 Counterpart of ``dpvo_tpu/models/vonet.py``: the two CNN encoders and the
 patch extraction at sampled centroids.  Layouts are channels-last like the
-JAX package.
+JAX package.  ``init_flax_like`` draws a module's weights as flax
+initialises the JAX package's (``lecun_normal`` kernels, zero biases,
+LayerNorm ones and zeros), so a from-scratch training run starts from the
+same distribution.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import torch.nn.functional as F
 
 from ..ops import corr as corr_ops
 from .encoder import BasicEncoder4
-from .update import DIM
+from .update import DIM, CorrDense
 
 
 def normalize_images(images_u8):
@@ -95,3 +98,23 @@ def select_centroids(gen, strat, n, h, w, M, gradient=None):
         raise NotImplementedError(
             f"Patch centroid selection not implemented: {strat}")
     return torch.stack([x, y], dim=-1).float()
+
+
+@torch.no_grad()
+def init_flax_like(module: nn.Module, gen: torch.Generator):
+    """Re-draw every weight of ``module`` in place from ``gen`` (on the
+    module's device) as flax's defaults would: Linear, Conv2d and CorrDense
+    kernels ``lecun_normal`` (a normal of std sqrt(1 / fan_in) / .8796
+    truncated at two of its stds), biases zero, LayerNorm scale one and
+    bias zero.  Returns the module."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, CorrDense)):
+            fan_in = m.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    return module

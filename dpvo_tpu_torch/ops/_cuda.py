@@ -134,6 +134,17 @@ def check(code: int, name: str):
                            f"cudaError {code}")
 
 
+def refuse_autograd(name: str, *tensors):
+    """Raise when grad mode is on and an input requires grad.  The kernels
+    have no backward: their outputs would carry no gradient, and a training
+    path would silently get zero gradients from them."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"CUDA kernel {name} has no backward: call it under "
+            "torch.no_grad() or with detached inputs")
+
+
 def require(t: torch.Tensor, name: str, dtype, shape=None, aligned=False):
     """Wrapper-side argument checks for a kernel input on the card;
     ``aligned``: the kernel reads it in 16-byte chunks."""

@@ -16,7 +16,9 @@ order) bitwise.
 Rows arrive sorted by their dense group rank ``gid`` (nondecreasing, step
 <= 1).  Outputs have ``padded_groups(g_cap)`` rows with zeros past the
 last rank, as on the TPU.  On a CPU tensor the wrappers run the plain
-PyTorch version; on a CUDA tensor they launch the kernel or raise.
+PyTorch version; on a CUDA tensor they launch the kernel or raise.  The
+kernels have no backward: on the card, the wrappers raise in grad mode when
+an input requires grad.
 """
 from __future__ import annotations
 
@@ -84,6 +86,8 @@ def segment_softmax_sums(gate_sorted, vals_sorted, shift, gid_sorted, g_cap):
     if gate_sorted.device.type == "cpu":
         return segment_softmax_sums_plain(gate_sorted, vals_sorted, shift,
                                           gid_sorted, g_cap)
+    _cuda.refuse_autograd("segment_softmax_sums", gate_sorted, vals_sorted,
+                          shift)
     E, D = gate_sorted.shape
     G = padded_groups(g_cap)
     _cuda.require(gate_sorted, "gate_sorted", torch.float32, (E, D))
@@ -106,6 +110,7 @@ def segment_sums(vals_sorted, gid_sorted, g_cap):
     ranks.  Returns (padded_groups(g_cap), D) fp32 per-group totals."""
     if vals_sorted.device.type == "cpu":
         return segment_sums_plain(vals_sorted, gid_sorted, g_cap)
+    _cuda.refuse_autograd("segment_sums", vals_sorted)
     E, D = vals_sorted.shape
     G = padded_groups(g_cap)
     _cuda.require(vals_sorted, "vals_sorted", torch.float32, (E, D))

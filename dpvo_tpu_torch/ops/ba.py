@@ -1,9 +1,10 @@
-"""Inference bundle adjustment: Gauss-Newton with a Schur complement over
-keyframe poses (6-dof) and per-patch inverse depths (1-dof).
+"""Bundle adjustment: Gauss-Newton with a Schur complement over keyframe
+poses (6-dof) and per-patch inverse depths (1-dof).
 
 Counterpart of ``dpvo_tpu/ops/ba.py``'s ``ba_iterative`` (the dense window
-solve of local BA) and ``ba_global`` (the matrix-free Schur solve with
-block-Jacobi PCG of global BA).  ``ba_iterative``: the reference's
+solve of local BA), ``ba_global`` (the matrix-free Schur solve with
+block-Jacobi PCG of global BA) and ``ba_differentiable`` (training's GN
+step, differentiable through the Cholesky solve).  ``ba_iterative``: the reference's
 robust masks (residual < 128 px, Z > 0.2, +-64 px in bounds), damping
 ``S += diag(1e-4 * S + 1)``, a finite-guarded Cholesky solve that skips the
 update when it fails, and the depth reset (d > 20 -> 1, floor 1e-4).
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import agg_cuda, lie
+from . import agg_cuda, lie, projective as pops
 from .scatter import INT_MAX, compactify
 
 
@@ -357,4 +358,102 @@ def ba_global(poses, patches, intrinsics, target, weight, lmbda,
         patches[:, 2] = torch.where(hit_k[:, None, None], d_k[:K, None, None],
                                     patches[:, 2])
         ctr[:, 2] = torch.where(hit_k, d_k[:K], ctr[:, 2])
+    return poses, patches
+
+
+# ---------------------------------------------------------------------------
+# Differentiable training BA
+# ---------------------------------------------------------------------------
+
+def _seg_sum(vals, seg, n):
+    """Row sums of ``vals`` by segment ``seg`` in [0, n]; slot ``n`` (rows
+    that do not count) is dropped.  ``index_add``: differentiable."""
+    out = vals.new_zeros((n + 1,) + vals.shape[1:]).index_add(0, seg, vals)
+    return out[:n]
+
+
+def ba_differentiable(poses, patches, intrinsics, targets, weights, lmbda,
+                      ii, jj, kk, valid, bounds, ep=10.0, fixedp=1,
+                      structure_only=False, k_cap=None):
+    """One damped GN step with a Schur complement, differentiable in every
+    float input: bounds-based masks, damping ``S += diag(ep + 1e-4 S)``, a
+    Cholesky solve whose failure (a non-finite ``dX``) zeroes the pose and
+    depth updates (``cholesky_ex`` and ``torch.where``: no host sync), and
+    the [1e-3, 10] depth clamp.
+
+    poses (N, 7), patches (K, 3, P, P), intrinsics (N, 4) per frame;
+    targets, weights (E, 2); ii, jj, kk (E,) int; valid (E,) bool; bounds
+    [x0, y0, x1, y1].  The first ``fixedp`` poses stay fixed; ``k_cap``
+    bounds the unique patches (default E).  -> (poses', patches').
+    """
+    N = poses.shape[0]
+    E = ii.shape[0]
+    k_cap = E if k_cap is None else k_cap
+    poses, patches = poses.float(), patches.float()
+    targets, weights = targets.float(), weights.float()
+    ii, jj, kk = ii.long(), jj.long(), kk.long()
+    dev = poses.device
+
+    coords, v, (Ji, Jj, Jz) = pops.transform(
+        poses, patches, intrinsics, ii, jj, kk, jacobian=True)
+    c = coords.shape[1] // 2
+    ctr = coords[:, c, c]
+    r = targets - ctr
+    in_bounds = ((ctr[:, 0] > bounds[0]) & (ctr[:, 1] > bounds[1])
+                 & (ctr[:, 0] < bounds[2]) & (ctr[:, 1] < bounds[3]))
+    v = v * ((torch.linalg.norm(r, dim=-1) < 250) & in_bounds & valid)
+    r = v[:, None] * r
+    w = v[:, None] * weights
+
+    n = N - fixedp
+    kx, ku = compactify(torch.where(valid, kk, INT_MAX), k_cap)
+    k_real = kx != INT_MAX
+    # depth segments of the edges that count; the rest sum into slot k_cap
+    seg = torch.where(v > 0, ku, k_cap)
+    Jz2 = Jz[:, :, 0]                                        # (E, 2)
+    C = _seg_sum((w * Jz2 * Jz2).sum(1), seg, k_cap)
+    u = _seg_sum((w * r * Jz2).sum(1), seg, k_cap)
+    Q = 1.0 / (C + lmbda)
+
+    if structure_only or n == 0:
+        dZ = Q * u
+        dX = None
+    else:
+        # J_eff: Ji at block ii - fixedp, Jj at block jj - fixedp (Ji
+        # carries the adjoint's sign), fixed poses masked out
+        cols = torch.arange(n, device=dev)
+        li, lj = ii - fixedp, jj - fixedp
+        oh_i = ((li.clamp(0, n - 1)[:, None] == cols)
+                & ((li >= 0) & (li < n))[:, None]).float()
+        oh_j = ((lj.clamp(0, n - 1)[:, None] == cols)
+                & ((lj >= 0) & (lj < n))[:, None]).float()
+        Jeff = (oh_i[:, None, :, None] * Ji[:, :, None, :]
+                + oh_j[:, None, :, None] * Jj[:, :, None, :]
+                ).reshape(E, 2, 6 * n)
+        wJeff = w[:, :, None] * Jeff
+        Bm = wJeff.reshape(-1, 6 * n).t() @ Jeff.reshape(-1, 6 * n)
+        vv = torch.einsum("era,er->a", wJeff, r)
+        A = torch.einsum("er,era->ea", w * Jz2, Jeff)        # (E, 6n)
+        Ef = _seg_sum(A, seg, k_cap).t()                     # (6n, k_cap)
+
+        EQ = Ef * Q[None, :]
+        S = Bm - EQ @ Ef.t()
+        y = vv - EQ @ u
+        S = S + torch.diag(ep + 1e-4 * torch.diagonal(S))
+        L, info = torch.linalg.cholesky_ex(S)
+        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
+        ok = (info == 0) & torch.isfinite(dX).all()
+        dX = torch.where(ok, dX, 0.0)
+        dZ = torch.where(ok, Q * (u - Ef.t() @ dX), 0.0)
+
+    K = patches.shape[0]
+    dZ_full = torch.zeros(K, device=dev).index_add(
+        0, kx.clamp(0, K - 1), torch.where(k_real, dZ, 0.0))
+    disps = (patches[:, 2] + dZ_full[:, None, None]).clamp(1e-3, 10.0)
+    patches = torch.stack([patches[:, 0], patches[:, 1], disps], dim=1)
+
+    if dX is not None:
+        dxi = torch.cat([torch.zeros((fixedp, 6), device=dev),
+                         dX.reshape(n, 6)])
+        poses = lie.se3_retr(poses, dxi)
     return poses, patches

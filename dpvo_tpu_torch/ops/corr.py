@@ -6,10 +6,13 @@ shapes on both sides.
 
 - ``patchify``: gather (2R+2)^2 windows at float coords + 4-tap bilinear
   blend, computed in the feature map's dtype.
-- ``corr``: patch-centric local correlation against a zero-padded map,
-  the gather formulation of the two-level correlation; the engine runs
-  the fused CUDA kernel of ``ops.corr_cuda`` instead, and the tests hold
-  the two against each other.
+- ``corr``: patch-centric local correlation, the training rollout's (the
+  engine runs the CUDA kernels of ``ops.corr_cuda``, and the tests hold
+  their plain versions to it).  A loop over the window's rows of offsets,
+  as the JAX package scans them, with a backward of its own: its fp32
+  transient is one row, E * P^2 * (2R+2) * C, where a gather of the whole
+  window holds 2R+2 times that (at the rollout's 18000 edges, 5.3 GB per
+  level).
 """
 from __future__ import annotations
 
@@ -55,51 +58,89 @@ def patchify(net, coords, radius):
     return blended.permute(0, 1, 3, 4, 2)
 
 
+def _window_rows(by, bx, fidx, Hp, Wp, pad, oy, R):
+    """Flat map rows (E, P, P, 2R+2) of window row ``oy`` (x offsets -R..R+1)
+    and, on an unpadded map, their in-bounds mask (None with ``pad``: taps
+    clamp into the zero border)."""
+    iy = by + (oy - R)
+    ix = bx[..., None] + (torch.arange(2 * R + 2, device=bx.device) - R)
+    ok = None
+    if pad == 0:
+        ok = ((iy >= 0) & (iy < Hp))[..., None] & (ix >= 0) & (ix < Wp)
+    lin = (fidx[:, None, None, None] * (Hp * Wp)
+           + (iy + pad).clamp(0, Hp - 1)[..., None] * Wp
+           + (ix + pad).clamp(0, Wp - 1))
+    return lin, ok
+
+
+class _CorrWindows(torch.autograd.Function):
+    """The (E, P, P, Dy, Dx) tap volume g . fmap[window] in fp32, one window
+    row at a time in both directions; the backward adds each row's fmap
+    gradient with ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, g, fmap, by, bx, fidx, R, pad):
+        F_, Hp, Wp, C = fmap.shape
+        fmap_lin = fmap.reshape(F_ * Hp * Wp, C)
+        rows = []
+        for oy in range(2 * R + 2):
+            lin, ok = _window_rows(by, bx, fidx, Hp, Wp, pad, oy, R)
+            f = fmap_lin[lin].float()                       # (E, P, P, D, C)
+            s = torch.einsum("epqc,epqxc->epqx", g, f)
+            rows.append(s if ok is None else torch.where(ok, s, 0.0))
+        ctx.save_for_backward(g, fmap, by, bx, fidx)
+        ctx.R, ctx.pad = R, pad
+        return torch.stack(rows, dim=-2)                    # (E,P,P,Dy,Dx)
+
+    @staticmethod
+    def backward(ctx, gvol):
+        g, fmap, by, bx, fidx = ctx.saved_tensors
+        R, pad = ctx.R, ctx.pad
+        F_, Hp, Wp, C = fmap.shape
+        fmap_lin = fmap.reshape(F_ * Hp * Wp, C)
+        need_g, need_f = ctx.needs_input_grad[:2]
+        grad_g = torch.zeros_like(g) if need_g else None
+        grad_f = (torch.zeros((F_ * Hp * Wp, C), dtype=torch.float32,
+                              device=fmap.device) if need_f else None)
+        for oy in range(2 * R + 2):
+            lin, ok = _window_rows(by, bx, fidx, Hp, Wp, pad, oy, R)
+            gv = gvol[..., oy, :]                           # (E, P, P, D)
+            if ok is not None:
+                gv = torch.where(ok, gv, 0.0)
+            if need_g:
+                f = fmap_lin[lin].float()
+                grad_g += torch.einsum("epqx,epqxc->epqc", gv, f)
+            if need_f:
+                contrib = gv[..., None] * g[..., None, :]   # (E,P,P,D,C)
+                grad_f.index_add_(0, lin.reshape(-1),
+                                  contrib.reshape(-1, C))
+        if need_f:
+            grad_f = grad_f.reshape(fmap.shape).to(fmap.dtype)
+        return grad_g, grad_f, None, None, None, None, None
+
+
 def corr(gmap, fmap, coords, kidx, fidx, radius=3, pad=0):
-    """Local correlation volume.
+    """Local correlation volume, differentiable in ``gmap``, ``fmap`` and
+    ``coords``.
 
     gmap   (K, P, P, C) patch features
-    fmap   (F, Hp, Wp, C) target feature maps, stored with a zero border
-           of ``pad`` pixels (taps clamp into it, reading zeros)
+    fmap   (F, Hp, Wp, C) target feature maps (any float dtype; products
+           in fp32), stored with a zero border of ``pad`` pixels (taps
+           clamp into it, reading zeros; with ``pad`` 0 taps outside the
+           map read 0)
     coords (E, 2, P, P) float coords [x, y] in UNPADDED map pixels
     kidx, fidx (E,) int patch / frame indices
     -> (E, 2R+1, 2R+1, P, P) fp32 ordered [x_off, y_off, py, px].
     """
-    E, _, P, _ = coords.shape
-    C = gmap.shape[-1]
-    F, Hp, Wp, _ = fmap.shape
-    H, W = Hp - 2 * pad, Wp - 2 * pad
-    R = radius
-    D = 2 * R + 2
-    dev = fmap.device
-
     coords = coords.float()
     cx, cy = coords[:, 0], coords[:, 1]                    # (E, P, P)
     bx_f, by_f = torch.floor(cx), torch.floor(cy)
-    bx, by = bx_f.long(), by_f.long()
     dx = (cx - bx_f)[..., None, None]                      # (E, P, P, 1, 1)
     dy = (cy - by_f)[..., None, None]
-
-    g = gmap[kidx].float()                                 # (E, P, P, C)
-    off = torch.arange(D, device=dev) - R
-    iy = by[..., None] + off                               # (E, P, P, D)
-    ix = bx[..., None] + off
-    if pad > 0:
-        iyc = (iy + pad).clamp(0, Hp - 1)
-        ixc = (ix + pad).clamp(0, Wp - 1)
-        ok = None
-    else:
-        ok = ((iy[..., :, None] >= 0) & (iy[..., :, None] < H)
-              & (ix[..., None, :] >= 0) & (ix[..., None, :] < W))
-        iyc = iy.clamp(0, H - 1)
-        ixc = ix.clamp(0, W - 1)
-    base = fidx.long()[:, None, None, None, None] * (Hp * Wp)
-    lin = base + iyc[..., :, None] * Wp + ixc[..., None, :]  # (E,P,P,D,D)
-    f = fmap.reshape(F * Hp * Wp, C)[lin.reshape(-1)].float()
-    vol = torch.einsum("epqc,epqyxc->epqyx", g,
-                       f.reshape(E, P, P, D, D, C))       # (E,P,P,Dy,Dx)
-    if ok is not None:
-        vol = torch.where(ok, vol, torch.zeros((), device=dev))
+    g = gmap[kidx.long()].float()                          # (E, P, P, C)
+    with torch.autocast(coords.device.type, enabled=False):
+        vol = _CorrWindows.apply(g, fmap, by_f.long(), bx_f.long(),
+                                 fidx.long(), radius, pad)
     out = _bilinear_blend(vol, dx, dy)                     # (E,P,P,7,7)
     return out.permute(0, 4, 3, 1, 2)
 

@@ -21,7 +21,9 @@ Feature rings are stored zero-padded (``pad_fmap``), so every 8x8 tap
 window is an in-bounds read and out-of-image taps read zeros.  The kernels
 take edges in table order with a ring slot per edge (``ff_rows``): no frame
 grouping, no tile padding.  ``n_live_rows`` zeroes every row at or past it,
-as the TPU kernels zero their dead tail tiles.
+as the TPU kernels zero their dead tail tiles.  The kernels have no
+backward: on the card, the wrappers raise in grad mode when an input
+requires grad (the training path uses ``ops.corr.corr``).
 
 Feature order: the kernels blend into the raw (level, p, dy, dx) order; the
 reference's interleaved corr-encoder rows are (dx, dy, py, px, level).
@@ -339,6 +341,8 @@ def corr_enc(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded, coords,
     if coords.device.type == "cpu":
         return corr_enc_plain(g_all, kk_rows, w_raw, fmap1_padded,
                               fmap2_padded, coords, ff_rows)
+    _cuda.refuse_autograd("corr_enc", g_all, w_raw, fmap1_padded,
+                          fmap2_padded, coords)
     dt = w_raw.dtype
     if dt == torch.float32:
         fn = "dpvo_corr_enc_f32"
@@ -388,6 +392,7 @@ def _check_maps(dtype, *hw):
 def _corr_raw(name, levels, layout, shape, g_pre, fmaps, coords, ff_rows,
               out_dtype, n_live_rows):
     """Launch csrc/corr_raw.cu at ``levels`` levels into ``layout``."""
+    _cuda.refuse_autograd(name, g_pre, *fmaps, coords)
     dt = g_pre.dtype
     kinds = (torch.float32, torch.bfloat16)
     if dt not in kinds or out_dtype not in kinds:
@@ -529,6 +534,8 @@ def corr_probe(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows, probe):
                                 ff_rows, probe)
     if probe not in PROBES:
         raise ValueError(f"unknown probe {probe!r}; one of {PROBES}")
+    _cuda.refuse_autograd(f"corr_probe ({probe})", g_pre, fmap1_padded,
+                          fmap2_padded, coords)
     E = coords.shape[0]
     _probe_edges(E)
     bf = torch.bfloat16

@@ -1,15 +1,50 @@
-"""Group metadata for the compact segment path, and ``compactify``
-(plain PyTorch).
+"""Segment ops, group metadata for the compact segment path, and
+``compactify`` (plain PyTorch).
 
-Counterpart of ``dpvo_tpu/ops/scatter.py::group_meta_compact_device`` and
-``compactify``.  Both run at static shapes with no host synchronisation
-(no ``torch.unique``, ``torch.nonzero`` or boolean-mask indexing).
+Counterpart of ``dpvo_tpu/ops/scatter.py``: the differentiable segment
+reductions of the training path (``scatter_sum``, ``scatter_mean``,
+``scatter_max``, ``scatter_softmax``; ``index_add`` and ``scatter_reduce``),
+``group_meta_compact_device`` and ``compactify``.  All run at static shapes
+with no host synchronisation (no ``torch.unique``, ``torch.nonzero`` or
+boolean-mask indexing).  The reductions take ``src`` (E, ...) and ``index``
+(E,) int in [0, num_segments) and return (num_segments, ...).
 """
 from __future__ import annotations
 
 import torch
 
 INT_MAX = torch.iinfo(torch.int32).max
+
+
+def scatter_sum(src, index, num_segments):
+    """Sum the rows of ``src`` into segments."""
+    out = src.new_zeros((num_segments,) + src.shape[1:])
+    return out.index_add(0, index, src)
+
+
+def scatter_mean(src, index, num_segments):
+    """Mean of each segment's rows (0 for an empty segment)."""
+    s = scatter_sum(src, index, num_segments)
+    cnt = scatter_sum(torch.ones(index.shape, dtype=src.dtype,
+                                 device=src.device), index, num_segments)
+    return s / cnt.clamp(min=1).reshape((-1,) + (1,) * (src.dim() - 1))
+
+
+def scatter_max(src, index, num_segments):
+    """Max of each segment's rows (-inf for an empty segment)."""
+    out = src.new_full((num_segments,) + src.shape[1:], float("-inf"))
+    idx = index.reshape((-1,) + (1,) * (src.dim() - 1)).expand(src.shape)
+    return out.scatter_reduce(0, idx, src, "amax", include_self=False)
+
+
+def scatter_softmax(src, index, num_segments):
+    """Softmax within segments, broadcast back to the rows; the segment max
+    is subtracted for stability, and an empty segment shifts by 0."""
+    seg_max = scatter_max(src, index, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    e = torch.exp(src - seg_max[index])
+    denom = scatter_sum(e, index, num_segments).clamp(min=1e-12)
+    return e / denom[index]
 
 
 def group_meta_compact(ids, order=None):

@@ -12,7 +12,13 @@ Module paths match because the port's submodules carry the flax names.
 
 ``load_network`` reads the JAX package's native checkpoint, an ``.npz`` of
 flattened ``patchify/...`` and ``update/...`` keys
-(``dpvo_tpu/utils/checkpoint.py`` ``save_network``), with numpy alone.
+(``dpvo_tpu/utils/checkpoint.py`` ``save_network``), with numpy alone;
+``save_network`` writes that layout (``state_dict_to_flax``, the inverse of
+``flax_to_state_dict``), so the JAX package reads the port's checkpoints.
+
+``save_train_state`` / ``load_train_state`` keep a whole training state
+(parameters, the optimizer's moments and count, the step) in an ``.npz`` of
+the port's own, keyed by parameter name.
 """
 from __future__ import annotations
 
@@ -52,6 +58,31 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def state_dict_to_flax(sd) -> dict:
+    """A module state dict -> its flax param tree ({"params": ...}) of
+    numpy arrays: Linear ``weight`` -> Dense ``kernel`` (in, out), Conv2d
+    OIHW -> HWIO, LayerNorm ``weight`` -> ``scale``.  LayerNorm is told
+    apart from a bias-free layer by its 1-D weight."""
+    tree = {}
+    for name, v in sd.items():
+        a = v.detach().float().cpu().numpy()
+        *mod, leaf = name.split(".")
+        if leaf == "weight":
+            if a.ndim == 4:
+                a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 2:
+                a, leaf = a.T, "kernel"
+            else:
+                leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected state dict entry {name}")
+        node = tree
+        for k in mod:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
 def params_from_jax(p_params, u_params):
     """(Patchifier state dict, Update state dict) from the JAX package's
     (params_patchify, params_update) flax trees."""
@@ -77,3 +108,53 @@ def load_network(path):
                 node = node.setdefault(k, {})
             node[leaf] = data[key]
     return params_from_jax(trees["patchify"], trees["update"])
+
+
+def save_network(path, patchifier, update_mod):
+    """Write the two modules' weights as the JAX package's ``.npz``
+    (``patchify/params/...`` and ``update/params/...`` keys)."""
+    flat = {}
+    for prefix, module in (("patchify", patchifier), ("update", update_mod)):
+        for key, a in _flatten(state_dict_to_flax(module.state_dict())):
+            flat["/".join((prefix,) + key)] = a
+    np.savez(path, **flat)
+
+
+def save_train_state(path, state):
+    """Parameters, the optimizer's moments and count, and the step of a
+    ``parallel.train_step.TrainState``, keyed by parameter name."""
+    names = [f"{prefix}.{n}" for prefix, m in state.modules().items()
+             for n, _ in m.named_parameters()]
+    opt = state.opt.state_dict()
+    flat = {"step": np.int64(state.step), "count": np.int64(opt["count"])}
+    for prefix, m in state.modules().items():
+        for n, p in m.named_parameters():
+            flat[f"param/{prefix}.{n}"] = p.detach().cpu().numpy()
+    for n, mu, nu in zip(names, opt["mu"], opt["nu"]):
+        flat[f"mu/{n}"] = mu.cpu().numpy()
+        flat[f"nu/{n}"] = nu.cpu().numpy()
+    np.savez(path, **flat)
+
+
+@torch.no_grad()
+def load_train_state(path, state):
+    """Restore what ``save_train_state`` wrote into ``state`` (built as for
+    a fresh run: the same modules and optimizer) on its device; raises when
+    the parameter names differ.  Returns the state."""
+    with np.load(path) as data:
+        names = [f"{prefix}.{n}" for prefix, m in state.modules().items()
+                 for n, _ in m.named_parameters()]
+        saved = sorted(k[6:] for k in data.files if k.startswith("param/"))
+        if saved != sorted(names):
+            raise ValueError(f"{path}: parameters differ from the model's")
+        params = [p for m in state.modules().values()
+                  for p in m.parameters()]
+        for n, p in zip(names, params):
+            p.copy_(torch.from_numpy(data[f"param/{n}"]))
+        dev = params[0].device
+        state.opt.load_state_dict({
+            "mu": [torch.from_numpy(data[f"mu/{n}"]).to(dev) for n in names],
+            "nu": [torch.from_numpy(data[f"nu/{n}"]).to(dev) for n in names],
+            "count": int(data["count"])})
+        state.step = int(data["step"])
+    return state

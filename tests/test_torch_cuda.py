@@ -269,6 +269,57 @@ def test_segment_sums_kernel_bitwise(dev, kind):
     assert torch.equal(got, want)
 
 
+def _wrapper_call(dev, name):
+    """(launch counter key, call) for each kernel wrapper, with one float
+    input that requires grad."""
+    g_all, kk, w_raw, f1, f2, coords, ff = _corr_inputs(dev, F32, E=64)
+    g_pre = g_all[kk.long()].contiguous()
+    gate, val, gid = _segments(dev, 64, 32, 9, seed=1)
+    shift = gate.max(dim=0, keepdim=True).values
+    w_raw.requires_grad_(True)
+    g_pre.requires_grad_(True)
+    val.requires_grad_(True)
+    gmap = g_all.reshape(-1, 3, 3, 128).requires_grad_(True)
+    calls = {
+        "corr_enc": ("corr_enc", lambda: corr_cuda.corr_enc(
+            g_all, kk, w_raw, f1, f2, coords, ff)),
+        "corr_fused": ("corr_fused", lambda: corr_cuda.corr_fused(
+            g_pre, f1, f2, coords, ff)),
+        "corr_single": ("corr_single", lambda: corr_cuda.corr_single(
+            g_pre, f1, coords, ff)),
+        "corr_grouped": ("corr_single", lambda: corr_cuda.corr_grouped(
+            gmap, f1, coords, kk, ff)),
+        "corr_probe": ("corr_probe.p_load", lambda: corr_cuda.corr_probe(
+            g_pre.to(BF16), f1.to(BF16), f2.to(BF16), coords, ff,
+            "p_load")),
+        "segment_softmax_sums": ("segment_softmax_sums",
+                                 lambda: agg_cuda.segment_softmax_sums(
+                                     gate, val, shift, gid, 16)),
+        "segment_sums": ("segment_sums", lambda: agg_cuda.segment_sums(
+            val, gid, 16)),
+    }
+    return calls[name]
+
+
+@pytest.mark.parametrize("name", ["corr_enc", "corr_fused", "corr_single",
+                                  "corr_grouped", "corr_probe",
+                                  "segment_softmax_sums", "segment_sums"])
+def test_wrappers_refuse_autograd(dev, name):
+    """The kernels have no backward: in grad mode with an input that
+    requires grad each wrapper raises before launching; under no_grad it
+    launches."""
+    key, call = _wrapper_call(dev, name)
+    before = _cuda.launches[key]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert _cuda.launches[key] == before
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert _cuda.launches[key] == before + 1
+    assert not out.requires_grad
+
+
 @pytest.mark.parametrize("probe", corr_cuda.PROBES)
 def test_corr_probe_kernel_vs_plain(dev, probe):
     g_pre, f1, f2, coords, ff = _raw_inputs(dev, BF16, E=208)

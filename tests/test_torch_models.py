@@ -93,7 +93,8 @@ def test_softagg_compact(n_groups):
     want = jm.apply(params, jnp.asarray(x), compact_meta=cm, g_cap=g_cap)
     tm = load(tblocks.SoftAgg(D), params)
     with torch.no_grad():
-        got = tm(t(x), tscatter.group_meta_compact(t(ids).long()), g_cap)
+        got = tm(t(x), compact_meta=tscatter.group_meta_compact(
+            t(ids).long()), g_cap=g_cap)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
@@ -142,7 +143,7 @@ def test_update_compact_meta(update_pair, seed):
     with torch.no_grad():
         got = tm(*map(t, (net, inp, corr, ii, jj, kk, valid)), nbrs=tnb,
                  compact_meta=tcm, g_cap=32)
-        # metadata built inside (the motion_probe path)
+        # no metadata: the scatter path (training's)
         got2 = tm(*map(t, (net, inp, corr, ii, jj, kk, valid)))
     for a, a2, b in zip(got, got2, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)

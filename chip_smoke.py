@@ -78,20 +78,43 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    ``torch.profiler`` (device busy and idle share, kernels per step, the
    kernels with the most device time), one eval rollout and ``validate``
    on it;
-7. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
+7. eval (``evaluate_tartan_torch.py``'s engine loop and scoring): the
+   loop at the small size in fp32 on the card against the CPU (the
+   never-merge envelope); then ``configs/default.yaml`` at 480x640
+   (LOOP_CLOSURE, bf16, lagged keyframing) with EDGE_CAPACITY_INAC=2^18,
+   weights from a ``.pth`` in the reference's layout synthesized from a
+   seeded generator (every tensor checked as loaded), 64 frames of a
+   rolled texture held in memory with GT poses in TartanAir's NED layout:
+   ms/frame, global BA calls, the harness's ATE and AUC, peak memory and
+   the launch counts (K2, K3 and K4 must launch; the motion probe is
+   forced after 4 natural refusals, and the line says so);
+8. classic (the classic loop-closure backend's device work): PGO on a
+   drifted 2000-pose loop with one Sim3 loop factor, card against CPU
+   (corrected translations after first-pose alignment within 3 times the
+   CPU's own spread when the poses move by 1e-6), ms per call; the spawned
+   PGO worker's start-up on the card; the structure-only BA of
+   ``estimate_3d_keypoints`` (``long_term.triangulate``) at 1024 keypoints
+   x 2 edges from synthetic points projected into three poses, card
+   against CPU (points within 1e-4), K4 launched and held against its
+   plain version; ``lc_callback``'s merge of a Sim3 correction into a card
+   engine against a CPU engine (1e-5); and with ``cv2`` present the CPU
+   tests' classic drive on the card, which must close a loop (with it
+   absent, ``DPVO(..., CLASSIC_LOOP_CLOSURE=True)`` raising an
+   ImportError naming ``cv2``);
+9. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
    default configuration (lagged keyframing), 30 warm frames and two
    40-frame windows each, then 5 profiled frames: ms/frame per window,
    live edges, the device idle share, launch counts, the box fit share at
    the last update; the merge drive's TUM trajectory and PLY map are
    written to a temporary directory and read back;
-8. the kernels line (one JSON object; ``launches`` from the bench merge
+10. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
-bench)
+eval, classic, bench)
 runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -804,6 +827,23 @@ def small_network(seed=0):
     return p.state_dict(), u.state_dict()
 
 
+def small_seams(slam):
+    """The small drives' test seams: motion_probe forced, scripted
+    centroids, fixed pre-init depth.  -> slam."""
+    M = SMALL["PATCHES_PER_FRAME"]
+    fh, fw = SMALL_HW[0] // 4, SMALL_HW[1] // 4
+
+    def centroids(t):
+        k = np.arange(M)
+        return np.stack([1 + (7 * k + 3 * t) % (fw - 2),
+                         1 + (5 * k + 11 * t) % (fh - 2)], -1)
+
+    slam.motion_probe = lambda: 100.0
+    slam.test_centroids = centroids
+    slam.test_fixed_depth = 0.7
+    return slam
+
+
 def small_drive(dev, thresh, network, n_frames=16, hook=None,
                 **overrides):
     """The small drive; ``hook(slam)`` runs before the first frame.  ->
@@ -813,20 +853,10 @@ def small_drive(dev, thresh, network, n_frames=16, hook=None,
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
-    M = SMALL["PATCHES_PER_FRAME"]
-    fh, fw = SMALL_HW[0] // 4, SMALL_HW[1] // 4
-
-    def centroids(t):
-        k = np.arange(M)
-        return np.stack([1 + (7 * k + 3 * t) % (fw - 2),
-                         1 + (5 * k + 11 * t) % (fh - 2)], -1)
-
-    slam = DPVO(VOConfig(**{**SMALL, "KEYFRAME_THRESH": thresh,
-                            **overrides}),
-                network=network, ht=SMALL_HW[0], wd=SMALL_HW[1], device=dev)
-    slam.motion_probe = lambda: 100.0
-    slam.test_centroids = centroids
-    slam.test_fixed_depth = 0.7
+    slam = small_seams(DPVO(VOConfig(**{**SMALL, "KEYFRAME_THRESH": thresh,
+                                        **overrides}),
+                            network=network, ht=SMALL_HW[0],
+                            wd=SMALL_HW[1], device=dev))
     if hook is not None:
         hook(slam)
     for t, img in enumerate(small_frames(n_frames)):
@@ -1680,6 +1710,481 @@ def phase_train(dev):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 7: the evaluation harness with a reference .pth -------------------
+
+EVAL_OVERRIDES = dict(EDGE_CAPACITY_INAC=1 << 18)
+EVAL_FRAMES = 64
+EVAL_PROBE_REFUSALS = 4   # natural motion-probe refusals before forcing it
+
+
+def reference_state_dict(gen):
+    """A state dict with the reference VONet's names and shapes (its
+    trained ``dpvo.pth`` layout: ``module.`` prefixes, ``update.lmbda``),
+    weights uniform in +-1/sqrt(fan_in) drawn from ``gen`` (CPU)."""
+    import torch
+    sd = {}
+
+    def put(name, *shape, fan_in):
+        sd[f"module.{name}"] = (torch.rand(shape, generator=gen) * 2 - 1
+                                ) / fan_in ** 0.5
+
+    def conv(name, cin, cout, k):
+        put(f"{name}.weight", cout, cin, k, k, fan_in=cin * k * k)
+        put(f"{name}.bias", cout, fan_in=cin * k * k)
+
+    def lin(name, cin, cout):
+        put(f"{name}.weight", cout, cin, fan_in=cin)
+        put(f"{name}.bias", cout, fan_in=cin)
+
+    def ln(name, d):
+        sd[f"module.{name}.weight"] = 1 + 0.1 * torch.randn(d, generator=gen)
+        put(f"{name}.bias", d, fan_in=d)
+
+    for enc, outd in (("patchify.fnet", 128), ("patchify.inet", 384)):
+        conv(f"{enc}.conv1", 3, 32, 7)
+        for layer, cin, cout in (("layer1.0", 32, 32), ("layer1.1", 32, 32),
+                                 ("layer2.0", 32, 64), ("layer2.1", 64, 64)):
+            conv(f"{enc}.{layer}.conv1", cin, cout, 3)
+            conv(f"{enc}.{layer}.conv2", cout, cout, 3)
+        conv(f"{enc}.layer2.0.downsample.0", 32, 64, 1)
+        conv(f"{enc}.conv2", 64, outd, 1)
+    lin("update.corr.0", 2 * 49 * 9, 384)
+    lin("update.corr.2", 384, 384)
+    ln("update.corr.3", 384)
+    lin("update.corr.5", 384, 384)
+    ln("update.norm", 384)
+    for name in ("c1", "c2"):
+        lin(f"update.{name}.0", 384, 384)
+        lin(f"update.{name}.2", 384, 384)
+    for agg in ("agg_kk", "agg_ij"):
+        for name in ("f", "g", "h"):
+            lin(f"update.{agg}.{name}", 384, 384)
+    for gru, norm in (("gru.1", "gru.0"), ("gru.3", "gru.2")):
+        ln(f"update.{norm}", 384)
+        lin(f"update.{gru}.gate.0", 384, 384)
+        lin(f"update.{gru}.res.0", 384, 384)
+        lin(f"update.{gru}.res.2", 384, 384)
+    lin("update.d.1", 384, 2)
+    lin("update.w.1", 384, 2)
+    sd["module.update.lmbda"] = torch.ones(1)
+    return sd
+
+
+def check_loaded(slam, sd):
+    """The engine's module tensors against the synthesized ones, renamed
+    back by hand: -> the number of tensors compared (all must be equal)."""
+    import torch
+    enc = {f"layer{i}.{b}.": f"layer{i}_{b}." for i in (1, 2)
+           for b in (0, 1)}
+    upd = {"corr.0.": "corr1.", "corr.2.": "corr2.", "corr.3.": "corr_norm.",
+           "corr.5.": "corr3.", "c1.0.": "c1_0.", "c1.2.": "c1_1.",
+           "c2.0.": "c2_0.", "c2.2.": "c2_1.", "gru.0.": "gru_norm1.",
+           "gru.1.gate.0.": "gru_res1.gate.", "gru.1.res.0.":
+           "gru_res1.res1.", "gru.1.res.2.": "gru_res1.res2.",
+           "gru.2.": "gru_norm2.", "gru.3.gate.0.": "gru_res2.gate.",
+           "gru.3.res.0.": "gru_res2.res1.", "gru.3.res.2.":
+           "gru_res2.res2.", "d.1.": "d.", "w.1.": "w."}
+    mine = {**{f"patchify.{k}": v for k, v in
+               slam.patchifier.state_dict().items()},
+            **{f"update.{k}": v for k, v in
+               slam.update_mod.state_dict().items()}}
+    n = 0
+    for key, want in sd.items():
+        key = key.removeprefix("module.")
+        if key == "update.lmbda":
+            continue
+        key = key.replace("downsample.0.", "downsample.")
+        for a, b in {**enc, **upd}.items():
+            key = key.replace(f".{a}", f".{b}", 1)
+        got = mine.pop(key)
+        if not torch.equal(got.float().cpu(), want.to(got.dtype).float()):
+            raise SystemExit(f"the .pth tensor {key} did not load as "
+                             f"written")
+        n += 1
+    if mine:
+        raise SystemExit(f"engine tensors the .pth did not set: "
+                         f"{sorted(mine)}")
+    return n
+
+
+@contextlib.contextmanager
+def eval_engines(adapt):
+    """Route the harness's ``DPVO`` through ``adapt(slam)`` and keep every
+    engine it builds in the yielded list."""
+    from dpvo_tpu_torch.utils import evaluation
+    built, make = [], evaluation.DPVO
+
+    def build(*args, **kw):
+        built.append(adapt(make(*args, **kw)))
+        return built[-1]
+
+    evaluation.DPVO = build
+    try:
+        yield built
+    finally:
+        evaluation.DPVO = make
+
+
+def eval_small_agreement(dev):
+    """The harness's engine loop at the small size (fp32, never merging,
+    the small drives' seams and weights) on the card against the CPU."""
+    import torch
+    import evaluate_tartan_torch as ev
+    from dpvo_tpu_torch.config import VOConfig
+    thresh, atol_t, atol_q = AGREE["never_merge"]
+    cfg = VOConfig(**{**SMALL, "KEYFRAME_THRESH": thresh})
+    network = small_network()
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        frames = ((t, img, SMALL_INTR) for t, img in enumerate(small_frames()))
+        with eval_engines(small_seams):
+            runs.append(ev.run_frames(cfg, network, frames, d))
+    (p_gpu, t_gpu), (p_cpu, t_cpu) = runs
+    err_t, err_q = pose_errors(p_gpu, p_cpu)
+    ok = (np.array_equal(t_gpu, t_cpu) and np.isfinite(p_gpu).all()
+          and err_t <= atol_t and err_q <= atol_q)
+    log(f"[eval] small engine loop ({len(p_gpu)} frames, fp32) card against "
+        f"CPU: max|dt|={err_t:.3e} (tol {atol_t}) 1-min|q.q'|={err_q:.3e} "
+        f"(tol {atol_q}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the harness's engine loop on the card disagrees "
+                         "with the CPU")
+
+
+def phase_eval(dev, n_frames=EVAL_FRAMES, ht=480, wd=640):
+    """evaluate_tartan_torch's engine loop and scoring at full width:
+    configs/default.yaml (LOOP_CLOSURE, bf16, lagged keyframing) with
+    EVAL_OVERRIDES, weights from a reference-layout .pth synthesized from a
+    seeded generator, a rolled-texture scene held in memory with GT poses
+    in TartanAir's NED layout.  The motion probe runs as it is; after
+    EVAL_PROBE_REFUSALS refusals (random weights may never pass it) it is
+    forced, and the line says so.  Launch counts zeroed just before the
+    drive and read just after; K2, K3 and K4 must launch."""
+    import torch
+    import evaluate_tartan_torch as ev
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.utils.evaluation import load_tartan_pose_file
+    t_phase = time.perf_counter()
+    eval_small_agreement(dev)
+    path = Path(__file__).resolve().parent / "configs" / "default.yaml"
+    cfg = VOConfig().merge_yaml(str(path)).replace(**EVAL_OVERRIDES)
+    sd = reference_state_dict(torch.Generator().manual_seed(0))
+    base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
+                                             dtype=np.uint8)
+    frames = [np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
+              for t in range(n_frames)]
+    ned = np.zeros((n_frames, 7))
+    ned[:, 1] = 0.05 * np.arange(n_frames)         # east: the world's x
+    ned[:, 6] = 1.0
+    refused, ticks = [], []
+
+    def adapt(slam):
+        probe = slam.motion_probe
+
+        def motion_probe():
+            if len(refused) >= EVAL_PROBE_REFUSALS:
+                return 100.0
+            m = probe()
+            if m < 2.0:
+                refused.append(m)
+            return m
+
+        slam.motion_probe = motion_probe
+        counters["attach"](slam)
+        return slam
+
+    def timed():
+        for t, img in enumerate(frames):
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+            yield t, img, ev.INTRINSICS
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = Path(tmp) / "dpvo.pth"
+        torch.save(sd, weights)
+        np.savetxt(Path(tmp) / "pose_left.txt", ned, delimiter=" ")
+        traj_ref = load_tartan_pose_file(str(Path(tmp) / "pose_left.txt"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        with lc_counters() as counters, eval_engines(adapt) as built:
+            poses, tstamps = ev.run_frames(cfg, str(weights), timed(), dev)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+    (slam,) = built
+    n_loaded = check_loaded(slam, sd)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    ate = ev.score(poses, traj_ref)
+    auc, avg = ev.summarize({"synthetic": ate})
+    ms = sorted(np.diff(ticks)[20:-1] * 1e3)
+    probe = ("natural" if len(refused) < EVAL_PROBE_REFUSALS else
+             f"forced after {len(refused)} refusals (values "
+             + ", ".join(f"{m:.3f}" for m in refused) + ")")
+    log(f"[eval] {ht}x{wd} configs/default.yaml (LOOP_CLOSURE="
+        f"{cfg.LOOP_CLOSURE}, M={cfg.PATCHES_PER_FRAME}, MIXED_PRECISION="
+        f"{cfg.MIXED_PRECISION}, ASYNC_KEYFRAME={cfg.ASYNC_KEYFRAME}) with "
+        f"{EVAL_OVERRIDES}; weights from a reference-layout .pth ({len(sd)} "
+        f"entries, {n_loaded} tensors loaded as written); motion probe "
+        f"{probe}; {n_frames} frames, median {ms[len(ms) // 2]:.2f} ms/frame "
+        f"(frames 20..{n_frames - 2}, max {ms[-1]:.2f}), keyframes "
+        f"{slam.n}, global BA calls {len(counters['global_ms'])} (ba_global "
+        f"{counters['ba_global']}), proposals (n, pairs) "
+        f"{counters['proposals']}; ATE {ate:.4f} AUC {auc:.4f} AVG "
+        f"{avg:.4f}; max_memory_allocated {mem:.2f} GiB; launches "
+        f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    expect, absent = PATH_KERNELS[13]
+    ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
+          and len(tstamps) == n_frames and np.isfinite(ate)
+          and all(launches.get(k, 0) > 0 for k in expect)
+          and not any(launches.get(k, 0) for k in absent))
+    if not ok:
+        raise SystemExit(f"the evaluation drive failed: poses finite "
+                         f"{np.isfinite(poses).all()}, ATE {ate}, launches "
+                         f"{launches}")
+    return dict(launches=launches, ms=ms[len(ms) // 2])
+
+
+# --- phase 8: the classic loop-closure backend -----------------------------
+
+PGO_POSES = 2000
+# PGO card against CPU: within PGO_SPREADS times the CPU's own spread when
+# the poses move by 1e-6.  The LM result is that sensitive (100 CG steps do
+# not converge on a long chain): on the CPU the spread is 1.6e-3 to 6.1e-3
+# at 2000 poses, and the JAX package's own 1.6e-4 to 4.9e-4 at 40-300
+PGO_SPREADS = 3.0
+TRIANGULATE_K = 1024
+TOL_POINTS = 1e-4
+TOL_MERGE = 1e-5
+
+
+def drifted_loop(n, seed=2, noise=0.01):
+    """A circle of n poses with drifted odometry and one Sim3 loop factor
+    between the last and the first pose (tests/test_loop_closure.py's)."""
+    import torch
+    from dpvo_tpu_torch.ops import lie
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n)
+    gt = torch.zeros((n, 7))
+    gt[:, 0] = torch.from_numpy(np.cos(ang))
+    gt[:, 1] = torch.from_numpy(np.sin(ang))
+    gt[:, 6] = 1.0
+    noise = lie.se3_exp(torch.from_numpy(rng.normal(size=(n, 6)) * noise)
+                        .float())
+    rel = lie.se3_mul(gt[1:], lie.se3_inv(gt[:-1]))
+    drift = [gt[0]]
+    for i in range(1, n):
+        drift.append(lie.se3_mul(lie.se3_mul(noise[i], rel[i - 1]),
+                                 drift[-1]))
+    C = lie.sim3_mul(lie.sim3_inv(lie.se3_to_sim3(gt[0])),
+                     lie.se3_to_sim3(gt[n - 1]))
+    return torch.stack(drift).numpy(), C[None].numpy()
+
+
+def pgo_worker_startup(dev):
+    """The classic backend's spawned PGO worker on the card: a fresh pool's
+    first run_pgo (process start, imports, CUDA context, the work) and the
+    same call again; -> (first, second) seconds."""
+    import multiprocessing as mp
+    from dpvo_tpu_torch.loop_closure.pgo import run_pgo
+    poses, C = drifted_loop(64)
+    args = (poses, C, np.array([63]), np.array([0]), 30, str(dev))
+    times = []
+    with mp.get_context("spawn").Pool(1) as pool:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = pool.apply_async(run_pgo, args).get(timeout=300)
+            times.append(time.perf_counter() - t0)
+            if not np.isfinite(out).all():
+                raise SystemExit("run_pgo in the worker gave non-finite poses")
+    return times
+
+
+def phase_classic(dev):
+    """The classic backend's device work, card against CPU: PGO at
+    PGO_POSES poses, the structure-only BA of estimate_3d_keypoints at
+    TRIANGULATE_K keypoints (K4 launched and held against its plain
+    version), the merge of a Sim3 correction into an engine; the spawned
+    worker's start-up; and the construction rule for cv2."""
+    import torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    from dpvo_tpu_torch.loop_closure import long_term, pgo
+    from dpvo_tpu_torch.ops import _cuda, lie
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # PGO
+    poses, C = drifted_loop(PGO_POSES)
+    args = (poses, C, np.array([PGO_POSES - 1]), np.array([0]))
+    outs, ms = {}, {}
+    for name, d in (("card", dev), ("cpu", cpu), ("card", dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = pgo.perform_updates(*args, device=d).cpu()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        outs[name] = lie.sim3_mul(lie.sim3_inv(o[0])[None], o).numpy()
+    err = float(np.abs(outs["card"][:, :3] - outs["cpu"][:, :3]).max())
+    jitter = np.random.default_rng(3).normal(size=poses.shape) * 1e-6
+    o = pgo.perform_updates(poses + jitter.astype(np.float32), *args[1:],
+                            device=cpu)
+    o = lie.sim3_mul(lie.sim3_inv(o[0])[None], o).numpy()
+    spread = float(np.abs(o[:, :3] - outs["cpu"][:, :3]).max())
+    before = lie.se3_to_sim3(torch.from_numpy(poses))
+    before = lie.sim3_mul(lie.sim3_inv(before[0])[None], before).numpy()
+    moved = float(np.abs(outs["card"][:, :3] - before[:, :3]).max())
+    startup = pgo_worker_startup(dev)
+    ok = (np.isfinite(outs["card"]).all() and err <= PGO_SPREADS * spread
+          and moved > 0.01)
+    log(f"[classic] PGO {PGO_POSES} poses + 1 loop factor: card "
+        f"{ms['card'][0]:.1f} ms first call, {ms['card'][1]:.1f} ms second; "
+        f"CPU {ms['cpu'][0]:.1f} ms; corrected translations card against "
+        f"CPU {err:.3e}, the CPU against itself with the poses moved by "
+        f"1e-6 {spread:.3e} (tol {PGO_SPREADS} x that), moved up to "
+        f"{moved:.3f} by the loop {'OK' if ok else 'FAIL'}; spawned worker "
+        f"on the card: first "
+        f"run_pgo (64 poses) {startup[0]:.2f} s, second {startup[1]:.2f} s, "
+        f"start-up {startup[0] - startup[1]:.2f} s")
+    if not ok:
+        raise SystemExit("PGO on the card disagrees with the CPU")
+
+    # structure-only BA: synthetic points projected into three poses
+    rng = np.random.default_rng(0)
+    K = TRIANGULATE_K
+    X = np.stack([rng.uniform(-1, 1, K), rng.uniform(-0.75, 0.75, K),
+                  rng.uniform(1.5, 3.0, K)], -1).astype(np.float32)
+    poses3 = np.zeros((3, 7), np.float32)
+    poses3[:, 0] = [0.1, 0.0, -0.1]
+    poses3[:, 3:7] = lie.so3_exp(torch.tensor(
+        [[0, 0.02, 0], [0, 0, 0], [0.01, -0.02, 0]])).numpy()
+    intr = np.array([120.0, 120.0, 80.0, 60.0], np.float32)
+    cam = lie.se3_act(torch.from_numpy(poses3)[:, None],
+                      torch.from_numpy(X)[None]).numpy()
+    uv = intr[:2] * cam[..., :2] / cam[..., 2:] + intr[2:]
+    targets = np.stack([uv[0], uv[2]], 1)
+    ms_ba = []
+    for _ in range(2):        # the first call pays the solver's first use
+        _cuda.reset_launches()
+        with last_calls() as last:
+            t0 = time.perf_counter()
+            pts = long_term.triangulate(
+                torch.from_numpy(poses3).to(dev),
+                torch.from_numpy(intr).to(dev), uv[1], targets)
+            torch.cuda.synchronize()
+            ms_ba.append((time.perf_counter() - t0) * 1e3)
+    k4 = _cuda.launches["segment_sums"]
+    vals, gid, g_cap = last["segment_sums"]
+    seg_err, seg_ord, seg_ok = check_segment_sums(vals, gid, g_cap)
+    want = long_term.triangulate(torch.from_numpy(poses3),
+                                 torch.from_numpy(intr), uv[1], targets)
+    err = float(np.abs(pts - want).max())
+    truth = float(np.abs(pts - X).max())
+    ok = err <= TOL_POINTS and k4 == 6 and seg_ok and truth < 1e-2
+    log(f"[classic] structure-only BA (triangulate, {K} keypoints x 2 edges, "
+        f"6 iterations): card {ms_ba[0]:.1f} ms first call, {ms_ba[1]:.1f} "
+        f"ms second (K4 counted in the second), points card against CPU "
+        f"{err:.3e} (tol {TOL_POINTS}), from the true points {truth:.3e}; "
+        f"K4 launches {k4}, at its last call E={len(gid)} g_cap={g_cap} "
+        f"max_abs_err {seg_err:.3e} against the plain version, "
+        f"{seg_ord:.3e} against the row-order reference (must be 0) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the structure-only BA disagrees between the card "
+                         "and the CPU, or K4 disagrees with its plain version")
+
+    # lc_callback's merge, on a card engine and a CPU engine
+    M, n, m = 8, 24, 20
+    gen = np.random.default_rng(1)
+    q = gen.normal(size=(n, 4)) * [0.1, 0.1, 0.1, 1.0]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    state = np.concatenate([gen.normal(size=(n, 3)), q], 1).astype(
+        np.float32)
+    depths = gen.uniform(0.2, 2.0, (n * M, 3, 3)).astype(np.float32)
+    sim = np.concatenate([state[:m] + 0.01 * gen.normal(size=(m, 7)),
+                          gen.uniform(0.8, 1.2, (m, 1))], 1).astype(
+        np.float32)
+    sim[:, 3:7] /= np.linalg.norm(sim[:, 3:7], axis=1, keepdims=True)
+    merged = []
+    for d in (dev, cpu):
+        slam = DPVO(VOConfig(**SMALL), ht=SMALL_HW[0], wd=SMALL_HW[1],
+                    device=d)
+        slam.ds.poses[:n] = torch.from_numpy(state).to(d)
+        slam.ds.patches[:n * M, 2] = torch.from_numpy(depths).to(d)
+        slam.n, slam.m = n, n * M
+        lc = object.__new__(long_term.LongTermLoopClosure)
+        lc.slam, lc.pending = slam, []
+        lc.merge(sim)
+        merged.append((slam.ds.poses[:n].cpu().numpy(),
+                       slam.ds.patches[:n * M, 2].cpu().numpy()))
+    (p_gpu, d_gpu), (p_cpu, d_cpu) = merged
+    err_p = float(np.abs(p_gpu - p_cpu).max())
+    err_d = float(np.abs(d_gpu - d_cpu).max())
+    ok = err_p <= TOL_MERGE and err_d <= TOL_MERGE
+    log(f"[classic] lc_callback merge of a Sim3 correction ({m} of {n} "
+        f"keyframes): poses card against CPU {err_p:.3e}, depths "
+        f"{err_d:.3e} (tol {TOL_MERGE}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the merge on the card disagrees with the CPU")
+
+    # construction: cv2 present -> the small classic drive on the card;
+    # absent -> an ImportError naming cv2
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        try:
+            DPVO(VOConfig(**SMALL, CLASSIC_LOOP_CLOSURE=True),
+                 ht=SMALL_HW[0], wd=SMALL_HW[1], device=dev)
+        except ImportError as e:
+            if "cv2" not in str(e):
+                raise
+            log(f"[classic] no cv2 on this machine: DPVO(..., "
+                f"CLASSIC_LOOP_CLOSURE=True, device='cuda') raises "
+                f"ImportError({str(e)!r}) OK")
+        else:
+            raise SystemExit("CLASSIC_LOOP_CLOSURE constructed without cv2")
+    else:
+        classic_drive(dev)
+    log(f"[classic] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def classic_drive(dev, ht=96, wd=128, roll=4, period=64, n_frames=60):
+    """tests/test_torch_classic_engine.py's drive on the card: a texture
+    whose roll repeats every 64 frames; retrieval must find the place
+    again and a pose-graph result must be merged."""
+    import cv2
+    import torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(**{**SMALL, "BUFFER_SIZE": 128, "KEYFRAME_THRESH": 0.0,
+                      "EDGE_CAPACITY": 1024, "CLASSIC_LOOP_CLOSURE": True})
+    slam = DPVO(cfg, ht=ht, wd=wd, device=dev)
+    with torch.no_grad():
+        slam.update_mod.d.weight.mul_(0.02)
+        slam.update_mod.d.bias.mul_(0.02)
+    slam.motion_probe = lambda: 100.0
+    lc, merged = slam.long_term_lc, []
+    merge = lc.merge
+    lc.merge = lambda c: (merged.append(len(c)), merge(c))
+    base = cv2.GaussianBlur(np.random.default_rng(7).integers(
+        0, 255, (ht, roll * period, 3), np.uint8), (5, 5), 0)
+    intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
+    for t in range(n_frames):
+        slam(t, np.ascontiguousarray(np.roll(base, -roll * t, 1)[:, :wd]),
+             intr)
+    poses, _ = slam.terminate()
+    ok = bool(lc.retrieval.found and merged and np.isfinite(poses).all())
+    log(f"[classic] cv2 {cv2.__version__} present: the small classic drive "
+        f"on the card, {n_frames} "
+        f"frames: loops found {lc.retrieval.found}, merged PGO results of "
+        f"{merged} poses, poses finite {np.isfinite(poses).all()} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the classic drive on the card closed no loop")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1687,7 +2192,7 @@ def main(argv):
         return 1
     from dpvo_tpu_torch.ops import _cuda
     phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
-              "bench")
+              "eval", "classic", "bench")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -1736,6 +2241,10 @@ def main(argv):
         log(f"[lc] phase {time.perf_counter() - t0:.1f} s")
     if run("train"):
         phase_train(dev)
+    if run("eval"):
+        phase_eval(dev)
+    if run("classic"):
+        phase_classic(dev)
     if run("bench"):
         bench = phase_bench(dev)
     if only is not None:

@@ -32,6 +32,12 @@ inactive store; every ``GLOBAL_OPT_FREQ`` keyframes, and at
 patches into recent frames; and an update whose active edges reach behind
 the removal window runs global BA over the active and inactive edges
 instead of local BA (once per keyframe count), after rescaling the scene.
+
+The classic backend (``CLASSIC_LOOP_CLOSURE=True``,
+``loop_closure.long_term``) sees every frame, follows every merge as it
+applies, tries to close a loop after every frame and merges each finished
+pose-graph optimisation; it needs OpenCV (``cv2``), which construction
+checks for.
 """
 from __future__ import annotations
 
@@ -57,9 +63,15 @@ class DPVO:
                  wd: int = 640, viz: bool = False, seed: int = 0,
                  device="cuda"):
         if cfg.CLASSIC_LOOP_CLOSURE:
-            raise NotImplementedError(
-                "the classic loop-closure backend (CLASSIC_LOOP_CLOSURE) is "
-                "not ported yet (ROADMAP.md Queue 1 item 13)")
+            # the one check: without it the import fails in a worker
+            # process or at the first triangulation, long after this
+            try:
+                import cv2  # noqa: F401
+            except ImportError as e:
+                raise ImportError(
+                    "CLASSIC_LOOP_CLOSURE=True needs OpenCV (the cv2 module) "
+                    "for its keypoints, matcher and frame cache; it is not "
+                    "installed") from e
         if viz:
             raise NotImplementedError(
                 "the viewer is not ported yet (ROADMAP.md Queue 1 item 17)")
@@ -113,12 +125,18 @@ class DPVO:
         self.test_centroids = None
         self.test_fixed_depth = None
 
+        self.long_term_lc = None
+        if cfg.CLASSIC_LOOP_CLOSURE:
+            from ..loop_closure.long_term import LongTermLoopClosure
+            self.long_term_lc = LongTermLoopClosure(cfg, self)
+
     # --- weights -----------------------------------------------------------
 
     def load_weights(self, network, seed=0):
         """network: (patchifier state dict, update state dict), e.g. from
-        ``utils.checkpoint.params_from_jax``; a path to the JAX package's
-        ``.npz`` checkpoint; or None for seeded random weights."""
+        ``utils.checkpoint.params_from_jax``; a path to the reference's
+        ``.pth`` or the JAX package's ``.npz`` checkpoint; or None for
+        seeded random weights."""
         if isinstance(network, (str, os.PathLike)):
             network = load_network(network)
         with torch.random.fork_rng(devices=[]):
@@ -409,6 +427,8 @@ class DPVO:
         hs.tstamps[k:self.n - 1] = hs.tstamps[k + 1:self.n].copy()
         self.n -= 1
         self.m -= self.M
+        if self.long_term_lc is not None:
+            self.long_term_lc.keyframe(k)
 
     def keyframe(self):
         cfg, hs, ds = self.cfg, self.hs, self.ds
@@ -453,6 +473,9 @@ class DPVO:
         """Track one frame.  image: (H, W, 3) uint8 BGR (numpy or tensor);
         intrinsics: (4,) at full image resolution."""
         cfg, hs, ds = self.cfg, self.hs, self.ds
+        if self.long_term_lc is not None:
+            self.long_term_lc(image.cpu().numpy() if torch.is_tensor(image)
+                              else np.asarray(image), self.n)
         if (self.n + 1) >= self.N:
             raise RuntimeError(
                 f'The buffer size is too small. You can increase it using '
@@ -519,6 +542,10 @@ class DPVO:
             self.update()
             self.keyframe()
 
+        if self.long_term_lc is not None:
+            self.long_term_lc.attempt_loop_closure(self.n)
+            self.long_term_lc.lc_callback()
+
     # --- trajectory extraction --------------------------------------------
 
     def get_pose(self, t):
@@ -531,6 +558,8 @@ class DPVO:
     @torch.no_grad()
     def terminate(self):
         """-> (poses (T, 7) xyz+quat numpy, tstamps (T,))."""
+        if self.long_term_lc is not None:
+            self.long_term_lc.terminate(self.n)
         if self.cfg.LOOP_CLOSURE:
             lkk, ljj = self.edges_loop()
             if len(lkk) > 0:

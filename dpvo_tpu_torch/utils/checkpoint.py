@@ -12,7 +12,9 @@ Module paths match because the port's submodules carry the flax names.
 
 ``load_network`` reads the JAX package's native checkpoint, an ``.npz`` of
 flattened ``patchify/...`` and ``update/...`` keys
-(``dpvo_tpu/utils/checkpoint.py`` ``save_network``), with numpy alone;
+(``dpvo_tpu/utils/checkpoint.py`` ``save_network``), with numpy alone, and
+the reference's trained VONet ``.pth`` (``load_torch_network``: torch
+layouts already, so ``convert_state_dict`` only renames);
 ``save_network`` writes that layout (``state_dict_to_flax``, the inverse of
 ``flax_to_state_dict``), so the JAX package reads the port's checkpoints.
 
@@ -91,13 +93,11 @@ def params_from_jax(p_params, u_params):
 
 def load_network(path):
     """(Patchifier state dict, Update state dict) from a checkpoint file:
-    the JAX package's ``.npz``, its flattened keys split at each ``/`` into
-    flax trees.  The reference's ``.pth`` is not read yet (ROADMAP.md Queue
-    1 item 14) and raises."""
+    the reference's ``.pth``/``.pt`` (``load_torch_network``), or the JAX
+    package's ``.npz``, its flattened keys split at each ``/`` into flax
+    trees."""
     if str(path).endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: .pth checkpoints are not read by the port yet "
-            "(ROADMAP.md Queue 1 item 14); convert to the .npz format")
+        return load_torch_network(path)
     trees = {"patchify": {}, "update": {}}
     with np.load(path) as data:
         for key in data.files:
@@ -108,6 +108,67 @@ def load_network(path):
                 node = node.setdefault(k, {})
             node[leaf] = data[key]
     return params_from_jax(trees["patchify"], trees["update"])
+
+
+def load_torch_network(path):
+    """(Patchifier state dict, Update state dict or None) from the
+    reference's VONet ``.pth`` (e.g. the trained ``dpvo.pth``)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_state_dict(raw)
+
+
+# reference VONet name (after ``module.`` is stripped) -> the port's, for
+# the submodules whose names differ (net.py's nn.Sequential indices)
+_ENCODER_NAMES = {f"layer{i}.{b}.": f"layer{i}_{b}."
+                  for i in (1, 2) for b in (0, 1)}
+_UPDATE_NAMES = {
+    "corr.0.": "corr1.", "corr.2.": "corr2.", "corr.3.": "corr_norm.",
+    "corr.5.": "corr3.", "c1.0.": "c1_0.", "c1.2.": "c1_1.",
+    "c2.0.": "c2_0.", "c2.2.": "c2_1.", "gru.0.": "gru_norm1.",
+    "gru.1.gate.0.": "gru_res1.gate.", "gru.1.res.0.": "gru_res1.res1.",
+    "gru.1.res.2.": "gru_res1.res2.", "gru.2.": "gru_norm2.",
+    "gru.3.gate.0.": "gru_res2.gate.", "gru.3.res.0.": "gru_res2.res1.",
+    "gru.3.res.2.": "gru_res2.res2.", "d.1.": "d.", "w.1.": "w.",
+    "norm.": "norm.", "agg_kk.": "agg_kk.", "agg_ij.": "agg_ij.",
+}
+
+
+def _rename(name, table):
+    for old, new in table.items():
+        if name.startswith(old):
+            return new + name[len(old):]
+    raise KeyError(f"unexpected reference VONet entry {name!r}")
+
+
+def convert_state_dict(raw):
+    """A reference VONet state dict (name -> tensor or array) ->
+    (Patchifier state dict or None, Update state dict or None).
+
+    Strips ``module.`` (DataParallel) and drops the legacy
+    ``update.lmbda``, as the reference's loader does; the rest is a
+    rename onto the port's submodules.  Convs are OIHW and linears
+    (out, in) on both sides, so every tensor is copied as fp32 unchanged.
+    ``patchify.*.downsample.0`` becomes ``downsample``; the norms are
+    parameter-free, so only convs carry encoder weights."""
+    p_sd, u_sd = {}, {}
+    for key, v in raw.items():
+        key = key.replace("module.", "")
+        if "update.lmbda" in key:
+            continue
+        v = (v.detach().to("cpu", torch.float32).clone() if torch.is_tensor(v)
+             else torch.tensor(np.asarray(v, np.float32)))
+        prefix, _, name = key.partition(".")
+        if prefix == "patchify":
+            enc, _, rest = name.partition(".")
+            rest = rest.replace("downsample.0.", "downsample.")
+            if rest.startswith("layer"):
+                rest = _rename(rest, _ENCODER_NAMES)
+            p_sd[f"{enc}.{rest}"] = v
+        elif prefix == "update":
+            u_sd[_rename(name, _UPDATE_NAMES)] = v
+        else:
+            raise KeyError(f"unexpected reference VONet entry {key!r}")
+    return p_sd or None, u_sd or None
 
 
 def save_network(path, patchifier, update_mod):

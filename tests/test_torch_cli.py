@@ -3,8 +3,9 @@
 - ``demo_torch.main`` on a directory of PNGs written by ``cv2``, with
   ``--save_trajectory``, ``--save_ply`` and ``--plot``, the files parsed
   back; and with ``--config configs/default.yaml`` (loop closure on);
-- the engine at configs/default.yaml, and what is not ported yet (the
-  ``.pth`` reader, the classic loop-closure backend, the viewer) raising;
+- the engine at configs/default.yaml; the viewer, which is not ported
+  yet, raising; a ``.pth`` checkpoint loading and the classic
+  loop-closure backend constructing;
 - ``bench_torch.run_regime`` with a tiny config and one short window, and
   ``bench_line``'s keys against ``bench.py``'s;
 - ``utils.plot_utils`` against ``dpvo_tpu.utils.plot_utils`` byte for
@@ -127,10 +128,14 @@ def test_default_config_constructs_with_loop_closure():
 
 
 def test_demo_torch_rejects_what_is_not_ported(tmp_path):
-    """.pth weights, the classic loop-closure backend and the viewer raise,
-    naming what is missing and the ROADMAP item that ports it."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        checkpoint.load_network(str(tmp_path / "weights.pth"))
+    """The viewer raises, naming the ROADMAP item that ports it; a
+    reference ``.pth`` loads (tests/test_torch_eval.py holds its
+    conversion) and the classic loop-closure backend constructs."""
+    ref = {f"update.d.1.{k}": torch.zeros(v) for k, v in
+           (("weight", (2, 384)), ("bias", (2,)))}
+    torch.save(ref, tmp_path / "weights.pth")
+    p_sd, u_sd = checkpoint.load_network(str(tmp_path / "weights.pth"))
+    assert p_sd is None and set(u_sd) == {"d.weight", "d.bias"}
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
     with pytest.raises(NotImplementedError, match="viewer"):
@@ -138,11 +143,12 @@ def test_demo_torch_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 17"):
         DPVO(VOConfig(LOOP_CLOSURE=True), ht=96, wd=128, viz=True,
              device="cpu")
+    pytest.importorskip("cv2")
     for lc in (False, True):
-        with pytest.raises(NotImplementedError,
-                           match="CLASSIC_LOOP_CLOSURE.*item 13"):
-            DPVO(VOConfig(CLASSIC_LOOP_CLOSURE=True, LOOP_CLOSURE=lc),
-                 ht=96, wd=128, device="cpu")
+        slam = DPVO(VOConfig(CLASSIC_LOOP_CLOSURE=True, LOOP_CLOSURE=lc),
+                    ht=96, wd=128, device="cpu")
+        assert slam.long_term_lc is not None
+        slam.long_term_lc.terminate(slam.n)
 
 
 def test_bench_torch_run_regime_tiny():

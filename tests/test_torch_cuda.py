@@ -26,7 +26,11 @@ patches, on patches spread beyond one box (mixed in one block with compact
 ones, so the per-window path runs), on patches clamped at every border of
 the map and on NaN coordinates (NaN where the plain version is NaN, the
 other values within tolerance), at edge counts that leave the last block
-partial.
+partial.  The classic loop-closure backend's device work: PGO on a drifted
+300-pose loop, card against CPU within 1e-3 after first-pose alignment
+(the CPU tests' gate against the JAX package), and the structure-only BA
+of ``long_term.triangulate`` at 1024 keypoints with K4 launched, points
+within 1e-4 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -383,3 +387,76 @@ def test_lagged_engine_card_vs_cpu(dev):
     np.testing.assert_allclose(p_gpu[:, :3], p_cpu[:, :3], atol=5e-2)
     qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1))
     assert np.all(qd > 1 - 1e-3)
+
+
+def _drifted_loop(n, seed=2, noise=0.01):
+    """A circle of n poses with drifted odometry (the port's Lie ops) and
+    one Sim3 loop constraint between the last and the first pose."""
+    from dpvo_tpu_torch.ops import lie
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n)
+    gt = torch.zeros((n, 7))
+    gt[:, 0], gt[:, 1], gt[:, 6] = (torch.from_numpy(np.cos(ang)),
+                                    torch.from_numpy(np.sin(ang)), 1.0)
+    drift = [gt[0]]
+    for i in range(1, n):
+        rel = lie.se3_mul(gt[i], lie.se3_inv(gt[i - 1]))
+        nz = lie.se3_exp(torch.from_numpy(rng.normal(size=6) * noise).float())
+        drift.append(lie.se3_mul(lie.se3_mul(nz, rel), drift[-1]))
+    C = lie.sim3_mul(lie.sim3_inv(lie.se3_to_sim3(gt[0])),
+                     lie.se3_to_sim3(gt[n - 1]))
+    return torch.stack(drift).numpy(), C[None].numpy()
+
+
+def test_pgo_card_vs_cpu(dev):
+    """The classic backend's pose-graph LM on the card against the CPU at
+    300 poses: the same corrected poses within 1e-3 once both are aligned
+    at their first pose (tests/test_torch_classic_lc.py's gate against the
+    JAX package: its own result moves by 1e-4 to 5e-4 when the inputs move
+    by 1e-6)."""
+    from dpvo_tpu_torch.loop_closure import pgo
+    from dpvo_tpu_torch.ops import lie
+    n = 300
+    poses, C = _drifted_loop(n)
+    args = (poses, C, np.array([n - 1]), np.array([0]))
+    out = [pgo.perform_updates(*args, device=d).cpu() for d in (dev, "cpu")]
+    a, b = (lie.sim3_mul(lie.sim3_inv(o[0])[None], o).numpy() for o in out)
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a, b, atol=1e-3)
+
+
+def triplet_problem(K, seed=0):
+    """K world points seen by three cameras moving along x (cam from world
+    poses), projected at feature resolution into the middle frame and its
+    two neighbours: (poses3, intrinsics, pts_c, targets, points)."""
+    from dpvo_tpu_torch.ops import lie
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-1, 1, K), rng.uniform(-0.75, 0.75, K),
+                  rng.uniform(1.5, 3.0, K)], -1).astype(np.float32)
+    poses = np.zeros((3, 7), np.float32)
+    poses[:, 0] = [0.1, 0.0, -0.1]
+    poses[:, 1] = [0.0, 0.01, 0.0]
+    poses[:, 3:7] = lie.so3_exp(torch.tensor(
+        [[0, 0.02, 0], [0, 0, 0], [0.01, -0.02, 0]])).numpy()
+    intr = np.array([120.0, 120.0, 80.0, 60.0], np.float32)
+    cam = lie.se3_act(torch.from_numpy(poses)[:, None],
+                      torch.from_numpy(X)[None]).numpy()     # (3, K, 3)
+    uv = intr[:2] * cam[..., :2] / cam[..., 2:] + intr[2:]
+    return poses, intr, uv[1], np.stack([uv[0], uv[2]], 1), X
+
+
+def test_structure_only_ba_card_vs_cpu(dev):
+    """estimate_3d_keypoints' structure-only BA (``long_term.triangulate``:
+    ba_iterative with t0 == t1, 6 iterations) at 1024 keypoints x 2 edges
+    on the card, with the K4 kernel, against the CPU: points within
+    1e-4, and near the true points."""
+    from dpvo_tpu_torch.loop_closure.long_term import triangulate
+    poses, intr, pts_c, targets, X = triplet_problem(1024)
+    _cuda.reset_launches()
+    got = triangulate(torch.from_numpy(poses).to(dev),
+                      torch.from_numpy(intr).to(dev), pts_c, targets)
+    assert _cuda.launches["segment_sums"] == 6
+    want = triangulate(torch.from_numpy(poses), torch.from_numpy(intr),
+                       pts_c, targets)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(got, X, atol=1e-2)

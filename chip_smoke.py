@@ -107,14 +107,43 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    live edges, the device idle share, launch counts, the box fit share at
    the last update; the merge drive's TUM trajectory and PLY map are
    written to a temporary directory and read back;
-10. the kernels line (one JSON object; ``launches`` from the bench merge
+10. redwood (Redwood fine-tuning, ``configs/redwood_train.yaml``): a
+   synthetic 72-frame 480x640 Redwood tree (JPEG images, uint16 mm depth
+   PNGs, a column-major PoseGraph JSON, ``intrinsic.npy``) through the
+   port's reader; one structure-only and two full steps at the config's
+   size (N=15, M=80, 18 iterations, bf16) from a ``save_network`` ``.npz``
+   (the config's ``ckpt`` overridden), with ms, peak memory and the cosine
+   schedule's learning rate; ``train_torch.train`` end to end for one
+   step; a small fp32 step card against CPU on three samples (TOL_TRAIN;
+   beside it the card against itself, and the card with TF32 on as the
+   control, which must break the limit); no hand-written kernel may
+   launch;
+11. viz (the viewer): with matplotlib, ``configs/default.yaml`` at
+   480x640 driven 40 frames with ``viz=True`` (``latest.png`` a PNG,
+   ``map.html`` parsing and embedding the finite points ``terminate()``
+   leaves, the snapshots' host ms, ms/frame and hand-written launches
+   against the same drive with ``viz=False``, which must launch the
+   same); without it, ``DPVO(viz=True)`` raising an ImportError naming
+   matplotlib; both: ``export_html`` directly and
+   ``backproject_and_filter`` (8 keyframes, 480x640 images, 60x80
+   disparities) card against CPU;
+12. sharded (multi-device on ``torch.distributed``): the edge-sharded
+   update at docs/MULTICHIP.md's retain scale (32768 edge rows, 32000
+   live, 22-frame window, M=96, k_cap=4096, 480x640 maps, fp32, so K2 in
+   fp32) against the single-device ``update_step`` with K2's plain
+   version (which must not launch K2) on one NCCL rank and on two gloo
+   ranks sharing the card (tests/test_infer_sharded.py's tolerances, at
+   most 0.1% of patches' depths past theirs), K2's launches per rank and
+   ms per sharded update; the data-parallel train step, NCCL world 1 and
+   two gloo ranks against one process;
+13. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
-eval, classic, bench)
+eval, classic, bench, redwood, viz, sharded)
 runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -2185,6 +2214,926 @@ def classic_drive(dev, ht=96, wd=128, roll=4, period=64, n_frames=60):
         raise SystemExit("the classic drive on the card closed no loop")
 
 
+# --- phase 9: Redwood fine-tuning (train_torch at configs/redwood_train.yaml)
+
+REDWOOD_FRAMES = 72      # the readers index frames < len - 65
+REDWOOD_HW = (480, 640)
+REDWOOD_FX = 320.0
+REDWOOD_DEPTH_MM = 2000.0
+REDWOOD_STEP = 0.15      # m per frame: fx * step / depth = 24 px of flow
+TRAIN_REDWOOD_SMALL = dict(n_frames=5, crop=(64, 96), M=4, iters=3)
+REDWOOD_SEEDS = (1, 2, 3)   # samples of the card-against-CPU step
+# gnorm's limit over the most that summation order alone moved it in the
+# run: on these samples the CPU at another thread count, or the card
+# twice, moves gnorm by up to ~2.4e-3 (PERF.md section 6), past TOL_TRAIN
+REDWOOD_ORDER_FACTOR = 3.0
+REDWOOD_THREADS = (8, 4, 2, 1)   # the CPU's runs; the first is the reference
+
+
+def redwood_tree(root, n=REDWOOD_FRAMES, hw=REDWOOD_HW):
+    """A synthetic Redwood tree as tests/test_redwood_data.py writes it, at
+    full width: root/train/scene01/{image/*.jpg, depth/*.png (uint16 mm),
+    scene01.json (column-major 4x4 node poses)} and root/intrinsic.npy; a
+    smooth texture rolled by the flow the poses and depths induce."""
+    import cv2
+    H, W = hw
+    scene = Path(root) / "train" / "scene01"
+    (scene / "image").mkdir(parents=True)
+    (scene / "depth").mkdir()
+    K = np.array([[REDWOOD_FX, 0.0, W / 2], [0.0, REDWOOD_FX, H / 2],
+                  [0.0, 0.0, 1.0]])
+    np.save(Path(root) / "intrinsic.npy", K)
+    roll = int(round(REDWOOD_FX * REDWOOD_STEP * 1000.0 / REDWOOD_DEPTH_MM))
+    base = np.random.default_rng(3).integers(
+        0, 255, (H, W + roll * n, 3), dtype=np.uint8)
+    base = cv2.GaussianBlur(base, (5, 5), 0)
+    depth = (np.full((H, W), REDWOOD_DEPTH_MM)
+             + 100.0 * np.sin(np.arange(W) / 7.0)[None]).astype(np.uint16)
+    nodes = []
+    for t in range(n):
+        img = np.ascontiguousarray(base[:, roll * t:roll * t + W])
+        cv2.imwrite(str(scene / "image" / f"{t:06d}.jpg"), img)
+        cv2.imwrite(str(scene / "depth" / f"{t:06d}.png"), depth)
+        T = np.eye(4)
+        T[0, 3] = REDWOOD_STEP * t
+        nodes.append({"pose": T.T.flatten().tolist()})
+    with open(scene / "scene01.json", "w") as f:
+        json.dump({"nodes": nodes}, f)
+    return str(root)
+
+
+def redwood_config(root, ckpt, **training):
+    """configs/redwood_train.yaml with the tree, the checkpoint and the
+    loader's workers overridden (each override printed by the caller)."""
+    from dpvo_tpu_torch.config import load_train_config
+    path = Path(__file__).resolve().parent / "configs" / "redwood_train.yaml"
+    cfg = load_train_config(str(path))
+    cfg["dataset"]["roots"] = [root]
+    cfg["training"].update(ckpt=ckpt, **training)
+    cfg["dataloader"].update(num_workers=2, prefetch=2)
+    return cfg
+
+
+def redwood_batches(root, dev, n, n_frames, crop, M, iters, seed):
+    """``n`` prepared batches of the Redwood reader's samples (loader order
+    and augmentation from ``seed``), as train_torch prepares them."""
+    import torch
+    import train_torch
+    from dpvo_tpu_torch.data.factory import dataset_factory
+    from dpvo_tpu_torch.data.loader import make_loader
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    db = dataset_factory(["redwood"], datapath=root, n_frames=n_frames,
+                         crop_size=crop, fmin=8.0, fmax=48.0, aug=True,
+                         device=dev)
+    rng = np.random.default_rng(seed)
+    out = []
+    for images, poses, disps, intr in make_loader(db, batch_size=1,
+                                                  num_workers=0):
+        out.append(train_torch.prepare_batch(rng, images, poses, disps,
+                                             intr, M, iters))
+        if len(out) == n:
+            return out
+    raise SystemExit(f"redwood: the reader gave {len(out)} of {n} samples")
+
+
+def redwood_small_run(batch, d, tf32):
+    """One full fp32 step from train_state(seed 3) on ``d`` with TF32 on
+    or off (cuBLAS and cuDNN): -> (metrics, each parameter's gradient
+    before the clip, as numpy)."""
+    import torch
+    import train_torch
+    from dpvo_tpu_torch.parallel import train_step as ts
+    c = TRAIN_REDWOOD_SMALL
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        state = train_state(d, seed=3, lr=1e-4, total=100)
+        step = ts.make_train_step(steps=c["iters"], M=c["M"])
+        _, m = step(state, train_torch.to_device(batch, d))
+        m = {k: float(v) for k, v in m.items()}
+        unclip = max(1.0, m["gnorm"] / state.opt.clip)
+        return m, [p.grad.cpu().numpy() * unclip for p in state.opt.params]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def redwood_card_runs(rank, world, init_method, batches, device):
+    """A spawned process on ``device`` (the card), per batch: two steps with the
+    default (atomic, run-to-run varying) algorithms, then two under
+    deterministic algorithms and one with TF32 on (the control) under
+    them; -> [dict(free=[run, run], det=[run, run], tf32=run)]."""
+    deterministic_process()
+    import torch
+    dev = torch.device(device)
+    out = []
+    for batch in batches:
+        runs = dict(free=[redwood_small_run(batch, dev, False)
+                          for _ in range(2)])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs["det"] = [redwood_small_run(batch, dev, False)
+                           for _ in range(2)]
+            runs["tf32"] = redwood_small_run(batch, dev, True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out.append(runs)
+    return out
+
+
+def metric_errors(run, ref, skip=()):
+    """[(rel err, metric)] of ``run``'s metrics against ``ref``'s, worst
+    first, without the metrics in ``skip``."""
+    (a, _), (b, _) = run, ref
+    return sorted(((abs(a[k] - b[k]) / max(abs(b[k]), 1e-5 / TOL_TRAIN), k)
+                   for k in b if k not in skip), reverse=True)
+
+
+def gnorm_error(run, ref):
+    return abs(run[0]["gnorm"] - ref[0]["gnorm"]) / abs(ref[0]["gnorm"])
+
+
+def gradient_moves(run, ref, names):
+    """Where ``run``'s gradient leaves ``ref``'s: |g - g_ref| / |g_ref|
+    overall, and the leaf holding the largest share of the difference
+    (name, share, its own relative difference)."""
+    diff = [float(np.linalg.norm(a - b)) for a, b in zip(run[1], ref[1])]
+    size = [float(np.linalg.norm(b)) for b in ref[1]]
+    i = int(np.argmax(diff))
+    total = float(np.linalg.norm(diff))
+    return (total / max(float(np.linalg.norm(size)), 1e-30), names[i],
+            diff[i] ** 2 / max(total ** 2, 1e-60), diff[i] / max(size[i],
+                                                                 1e-30))
+
+
+def cpu_threads_run(batch, threads):
+    """redwood_small_run on the CPU with ``threads`` threads (another
+    summation order)."""
+    import torch
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return redwood_small_run(batch, torch.device("cpu"), False)
+    finally:
+        torch.set_num_threads(saved)
+
+
+def redwood_small_agreement(root, dev):
+    """On Redwood samples of REDWOOD_SEEDS, one full fp32 step from the
+    same weights on the CPU and on the card (TF32 off, deterministic
+    algorithms; two card runs must be equal).  Every metric but gnorm
+    within TOL_TRAIN of the CPU's; gnorm, the one that summation order
+    moves by ~1e-3 here, within REDWOOD_ORDER_FACTOR times the most that
+    order moved it in this run (the CPU at REDWOOD_THREADS threads, the
+    card twice with its default, atomic algorithms), and never less than
+    TOL_TRAIN.
+    The control, the card with TF32 on, must break a limit.  Printed per
+    seed: the spreads and the gradient leaf that moves most."""
+    import torch
+    from dpvo_tpu_torch.parallel import launch
+    c = TRAIN_REDWOOD_SMALL
+    cpu_dev = torch.device("cpu")
+    batches = [redwood_batches(root, cpu_dev, 1, c["n_frames"], c["crop"],
+                               c["M"], c["iters"], seed=seed)[0]
+               for seed in REDWOOD_SEEDS]
+    with tempfile.TemporaryDirectory() as tmp:
+        (cards,) = launch.spawn(redwood_card_runs, 1, (batches, str(dev)),
+                                rendezvous_dir=tmp, timeout=600, threads=4)
+    state = train_state(cpu_dev, seed=3)
+    names = [f"{pre}.{n}" for pre, m in state.modules().items()
+             for n, _ in m.named_parameters()]
+    rows, order, repeat_ok = [], 0.0, True
+    for seed, batch, card in zip(REDWOOD_SEEDS, batches, cards):
+        cpus = [cpu_threads_run(batch, t) for t in REDWOOD_THREADS]
+        cpu, cpu1 = cpus[0], cpus[-1]
+        g_cpus = [r[0]["gnorm"] for r in cpus]
+        det = card["det"][0]
+        repeat_ok &= det[0] == card["det"][1][0] and all(
+            np.array_equal(a, b) for a, b in zip(det[1], card["det"][1][1]))
+        spreads = ((max(g_cpus) - min(g_cpus)) / abs(g_cpus[0]),
+                   gnorm_error(card["free"][1], card["free"][0]))
+        order = max(order, *spreads)
+        rows.append((seed, cpu, det, card["tf32"]))
+        g_cpu = gradient_moves(cpu1, cpu, names)
+        g_det = gradient_moves(det, cpu, names)
+        log(f"[redwood] seed {seed}: deterministic card vs CPU, worst "
+            f"first: " + ", ".join(f"{k} {e:.3e}" for e, k in
+                                   metric_errors(det, cpu)[:4])
+            + f"; gnorm moved by order alone: CPU at {REDWOOD_THREADS} "
+            f"threads {spreads[0]:.3e}, the card twice with its default "
+            f"algorithms "
+            f"{spreads[1]:.3e}; the gradient |dg|/|g|: CPU 1 vs 8 threads "
+            f"{g_cpu[0]:.3e} (most in {g_cpu[1]}: {g_cpu[2]:.0%} of it, "
+            f"{g_cpu[3]:.3e} of the leaf), card vs CPU {g_det[0]:.3e} (most "
+            f"in {g_det[1]}: {g_det[2]:.0%}, {g_det[3]:.3e}); gnorm CPU "
+            + ", ".join(f"{g:.6f}" for g in g_cpus) + ", card "
+            f"{det[0]['gnorm']:.6f}, "
+            + ", ".join(f"{r[0]['gnorm']:.6f}" for r in card["free"])
+            + f" (default algorithms), TF32 on {card['tf32'][0]['gnorm']:.6f}")
+    lim = max(TOL_TRAIN, REDWOOD_ORDER_FACTOR * order)
+    worst, worst_g, ctrl = (0.0, ""), (0.0, 0), 0.0
+    for seed, cpu, det, tf32 in rows:
+        e, k = metric_errors(det, cpu, skip=("gnorm",))[0]
+        worst = max(worst, (e, f"{k}, seed {seed}"))
+        worst_g = max(worst_g, (gnorm_error(det, cpu), seed))
+        ctrl = max(ctrl, metric_errors(tf32, cpu, skip=("gnorm",))[0][0]
+                   / TOL_TRAIN, gnorm_error(tf32, cpu) / lim)
+    ok = repeat_ok and worst[0] <= TOL_TRAIN and worst_g[0] <= lim < \
+        lim * ctrl
+    log(f"[redwood] card vs CPU, one full fp32 step on Redwood samples "
+        f"(N={c['n_frames']}, {c['crop'][0]}x{c['crop'][1]}, M={c['M']}, "
+        f"{c['iters']} iterations, seeds {REDWOOD_SEEDS}, deterministic "
+        f"algorithms on the card, two card runs equal {repeat_ok}): worst "
+        f"metric but gnorm {worst[0]:.3e} ({worst[1]}; tol {TOL_TRAIN}); "
+        f"gnorm {worst_g[0]:.3e} (seed {worst_g[1]}; tol {lim:.3e} = max("
+        f"{TOL_TRAIN}, {REDWOOD_ORDER_FACTOR} x {order:.3e}, the most "
+        f"summation order moved it)); the control, TF32 on, "
+        f"{ctrl:.1f}x its worst limit (must exceed 1) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not repeat_ok:
+        raise SystemExit("redwood: deterministic card runs differ")
+    if worst[0] > TOL_TRAIN or worst_g[0] > lim:
+        raise SystemExit("redwood: the card's step left the CPU's")
+    if ctrl <= 1.0:
+        raise SystemExit("redwood: the limits do not catch TF32 in the "
+                         "fp32 step (the control stayed within them)")
+
+
+def phase_redwood(dev):
+    """Redwood fine-tuning at configs/redwood_train.yaml's size (480x640,
+    N=15, M=80, 18 iterations, bf16, cosine schedule from a checkpoint):
+    the reader on a synthetic full-width tree, one structure-only and two
+    full steps timed, train_torch.train end to end for one step, and a
+    small fp32 step card against CPU with its TF32 control.  No
+    hand-written kernel may launch."""
+    import torch
+    import train_torch
+    from dpvo_tpu_torch.models.update import Update
+    from dpvo_tpu_torch.models.vonet import Patchifier, init_flax_like
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.parallel import train_step as ts
+    from dpvo_tpu_torch.utils.checkpoint import save_network
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise SystemExit("redwood: the Redwood reader needs OpenCV (cv2), "
+                         "which this machine lacks")
+    t_phase = time.perf_counter()
+    before = dict(_cuda.launches)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = redwood_tree(Path(tmp) / "redwood")
+        gen = torch.Generator().manual_seed(0)
+        ckpt = str(Path(tmp) / "start.npz")
+        save_network(ckpt, init_flax_like(Patchifier(3), gen),
+                     init_flax_like(Update(3), gen))
+        cfg = redwood_config(root, ckpt)
+        tcfg, dcfg = cfg["training"], cfg["dataset"]
+        log(f"[redwood] configs/redwood_train.yaml: {dcfg['names']}, "
+            f"N={dcfg['n_frames']}, M={tcfg['M']}, {tcfg['iters']} "
+            f"iterations, amp {tcfg['amp']}, lr {tcfg['lr']}, scheduler "
+            f"{cfg['scheduler']['type']}, {tcfg['steps']} steps; overrides: "
+            f"roots -> a synthetic {REDWOOD_FRAMES}-frame "
+            f"{REDWOOD_HW[0]}x{REDWOOD_HW[1]} tree, ckpt -> a save_network "
+            f".npz of flax-like seeded weights, dataloader workers 2")
+        t0 = time.perf_counter()
+        batches = redwood_batches(root, dev, 3, dcfg["n_frames"],
+                                  REDWOOD_HW, tcfg["M"], tcfg["iters"],
+                                  seed=0)
+        log(f"[redwood] reader: scene_info, graph and 3 samples in "
+            f"{time.perf_counter() - t0:.1f} s; rollout edges "
+            f"{len(batches[0]['sch_ii'])}")
+        state = train_torch.build_state(tcfg, cfg["scheduler"],
+                                        tcfg["steps"], dev)
+        sched = ts.make_schedule(tcfg["lr"], tcfg["steps"],
+                                 cfg["scheduler"]["type"])
+        for i, so in enumerate((True, False, False)):
+            step = ts.make_train_step(steps=tcfg["iters"], M=tcfg["M"],
+                                      structure_only=so, amp=tcfg["amp"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, train_torch.to_device(batches[i], dev))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            lr = state.opt.opt.param_groups[0]["lr"]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            loss, gnorm = float(m["loss"]), float(m["gnorm"])
+            log(f"[redwood] step {i} ({'structure-only' if so else 'full'}"
+                f"): {ms:.1f} ms, loss {loss:.6f}, gnorm {gnorm:.6f}, lr "
+                f"{lr:.6e} (cosine schedule at {i}: {sched(i):.6e}), peak "
+                f"memory {peak:.2f} GiB")
+            if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+                    and lr == sched(i)):
+                raise SystemExit(f"redwood: step {i} gave loss {loss}, "
+                                 f"gnorm {gnorm}, lr {lr}")
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            done = train_torch.train(redwood_config(
+                root, ckpt, steps=1, save_freq=1, name="redwood_smoke"),
+                device=dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.chdir(cwd)
+        saved = sorted(p.name for p in (Path(tmp) / "checkpoints").iterdir())
+        log(f"[redwood] train_torch.train(configs/redwood_train.yaml, steps "
+            f"1): {ms:.1f} ms end to end (reader from its cache, loader, "
+            f"state, one full step, checkpoint), step {done.step}, wrote "
+            f"{saved}")
+        if done.step != 1 or "redwood_smoke_000001.npz" not in saved:
+            raise SystemExit("redwood: train_torch.train did not finish")
+        redwood_small_agreement(root, dev)
+    if dict(_cuda.launches) != before:
+        raise SystemExit(f"redwood: hand-written kernels launched: {before} "
+                         f"-> {dict(_cuda.launches)}")
+    log(f"[redwood] no hand-written kernel launched; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 10: the viewer --------------------------------------------------
+
+VIZ_FRAMES = 40
+VIZ_PERIOD = 0.25        # s between snapshots in the drive (default 2.0)
+TOL_VIZ = 1e-5
+
+
+def viz_drive(dev, viz, n_frames=VIZ_FRAMES, ht=480, wd=640):
+    """configs/default.yaml at 480x640 (EVAL_OVERRIDES) with ``viz``,
+    motion probe forced, a frame rolling 4 px; -> (slam, ms per frame
+    synchronised, hand-written launches, snapshot host ms)."""
+    import torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    from dpvo_tpu_torch.ops import _cuda
+    path = Path(__file__).resolve().parent / "configs" / "default.yaml"
+    cfg = VOConfig().merge_yaml(str(path)).replace(**EVAL_OVERRIDES)
+    slam = DPVO(cfg, network=None, ht=ht, wd=wd, viz=viz, device=dev)
+    slam.motion_probe = lambda: 100.0
+    snap_ms = []
+    if viz:
+        slam.viewer.period = VIZ_PERIOD
+        snapshot = slam.viewer.snapshot
+
+        def timed_snapshot(force=False):
+            t0 = time.perf_counter()
+            took = snapshot(force)
+            if took:
+                snap_ms.append((time.perf_counter() - t0) * 1e3)
+            return took
+
+        slam.viewer.snapshot = timed_snapshot
+    base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
+                                             dtype=np.uint8)
+    intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    ms = []
+    for t in range(n_frames):
+        img = np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
+        t0 = time.perf_counter()
+        slam(t, img, intr)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.launches)
+    poses, _ = slam.terminate()
+    if not np.isfinite(poses).all():
+        raise SystemExit("viz: non-finite poses")
+    return slam, ms, launches, snap_ms
+
+
+def viz_backproject(dev, N=8, H=60, W=80, scale=8):
+    """dense.backproject_and_filter at 480x640 images with 1/8 disparities,
+    card against CPU: points within TOL_VIZ, colors and keep equal."""
+    import torch
+    from dpvo_tpu_torch.ops import lie
+    from dpvo_tpu_torch.viz.dense import backproject_and_filter
+    rng = np.random.default_rng(8)
+    xi = (rng.normal(size=(N, 6)) * 0.02).astype(np.float32)
+    xi[:, 0] += 0.05 * np.arange(N)
+    poses = lie.se3_exp(torch.from_numpy(xi))
+    disps = torch.from_numpy((0.25 + 0.002 * rng.normal(size=(N, H, W)))
+                             .astype(np.float32))
+    intr = torch.tensor([[40.0, 40.0, W / 2, H / 2]] * N)
+    images = torch.from_numpy(rng.integers(
+        0, 255, (N, H * scale, W * scale, 3), dtype=np.uint8))
+    out = {}
+    for d in ("cpu", dev):
+        args = [x.to(d) for x in (images, poses, disps, intr)]
+        if d == dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = backproject_and_filter(*args, 3, scale=scale)
+        if d == dev:
+            torch.cuda.synchronize()
+        out[str(d)] = ([r.cpu().numpy() for r in res],
+                       (time.perf_counter() - t0) * 1e3)
+    (pc, cc, kc), ms_cpu = out["cpu"]
+    (pg, cg, kg), ms_card = out[str(dev)]
+    err = float(np.abs(pg - pc).max() / max(np.abs(pc).max(), 1.0))
+    ok = (err <= TOL_VIZ and np.array_equal(cg, cc) and np.array_equal(kg, kc)
+          and 0 < kc.sum() < kc.size)
+    log(f"[viz] backproject_and_filter {N} keyframes, {H * scale}x"
+        f"{W * scale} images, {H}x{W} disparities: card vs CPU points max "
+        f"err {err:.3e} (tol {TOL_VIZ}), colors equal "
+        f"{np.array_equal(cg, cc)}, keep equal {np.array_equal(kg, kc)} "
+        f"({int(kc.sum())} of {kc.size} kept); {ms_card:.2f} ms on the card "
+        f"(first call), CPU {ms_cpu:.2f} ms {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("viz: backproject_and_filter left the CPU's")
+
+
+def viz_export_html(tmp):
+    from dpvo_tpu_torch.viz.html_map import export_html
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(5000, 3)).astype(np.float32)
+    pts[:10] = np.nan
+    path = export_html(str(Path(tmp) / "direct.html"), pts,
+                       rng.integers(0, 255, (5000, 3)).astype(np.uint8),
+                       rng.normal(size=(20, 3)), [np.zeros((2, 3))] * 8,
+                       image=rng.integers(0, 255, (48, 64, 3), np.uint8))
+    npts, _ = html_counts(Path(path).read_text())
+    log(f"[viz] export_html directly: {npts} points embedded of 5000 (10 "
+        f"NaN) {'OK' if npts == 4990 else 'FAIL'}")
+    if npts != 4990:
+        raise SystemExit("viz: export_html embedded the wrong points")
+
+
+def html_counts(html):
+    """(points, cameras) that a map.html says it embeds, after checking
+    that its embedded arrays parse."""
+    m = re.search(r"dpvo_tpu map — (\d+) points, (\d+) cameras", html)
+    pts = json.loads(re.search(r"const PTS = (\[.*?\]);", html).group(1))
+    if m is None or len(pts) != 6 * int(m.group(1)):
+        raise SystemExit("viz: map.html does not parse")
+    return int(m.group(1)), int(m.group(2))
+
+
+def snapshot_cost(dev, slam, frame, reps=5):
+    """The viewer's engine-thread work once a period,
+    ``viz.viewer.take_snapshot`` (the point cloud of every patch slot and
+    pinned copies behind an event), on a driven engine: host ms per call,
+    ms until the copies land, and one call profiled."""
+    import torch
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.viz.viewer import take_snapshot
+    before = dict(_cuda.launches)
+    host, landed = [], []
+    for _ in range(reps):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        snap = take_snapshot(slam, frame)
+        host.append((time.perf_counter() - t0) * 1e3)
+        snap.host()
+        landed.append((time.perf_counter() - t0) * 1e3)
+    profile = "not profiled"
+    if dev.type == "cuda":
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            take_snapshot(slam, frame).host()
+            ms = (time.perf_counter() - t0) * 1e3
+        profile = device_profile(prof, ms, 1, top=4, unit="snapshot")
+    if dict(_cuda.launches) != before:
+        raise SystemExit("viz: a snapshot launched a hand-written kernel")
+    log(f"[viz] take_snapshot on the engine ({slam.n} keyframes, {slam.m} "
+        f"patches; {reps} calls): host ms " + ", ".join(
+            f"{x:.2f}" for x in host) + "; copies landed after ms "
+        + ", ".join(f"{x:.2f}" for x in landed) + "; hand-written launches "
+        f"0; profiled: {profile}")
+
+
+def phase_viz(dev):
+    """The viewer.  On the card: the engine at configs/default.yaml's
+    480x640 for VIZ_FRAMES frames with viz=False, then the viewer's
+    snapshot (its engine-thread work) timed on it.  With matplotlib, the
+    same drive with viz=True (latest.png a PNG, map.html embedding the
+    finite points terminate() leaves, the same hand-written launches as
+    without the viewer, ms/frame against the viz=False drive); without it,
+    DPVO(viz=True) raising an ImportError naming matplotlib.  Then
+    export_html directly and backproject_and_filter card vs CPU."""
+    import torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            try:
+                import matplotlib
+                have = matplotlib.__version__
+            except ImportError:
+                have = None
+            off, ms_off, l_off, _ = viz_drive(dev, False)
+            med = lambda v: sorted(v[10:])[len(v[10:]) // 2]  # noqa: E731
+            frame = np.random.default_rng(1).integers(0, 255, (480, 640, 3),
+                                                      dtype=np.uint8)
+            snapshot_cost(dev, off, frame)
+            del off
+            if have is None:
+                log(f"[viz] viz=False drive: {VIZ_FRAMES} frames at 480x640, "
+                    f"median {med(ms_off):.2f} ms/frame (frames 10..), "
+                    f"hand-written launches {l_off}; the drive with the "
+                    f"viewer is not measured: matplotlib is not installed")
+                try:
+                    DPVO(VOConfig(), ht=96, wd=128, viz=True, device=dev)
+                except ImportError as e:
+                    ok = "matplotlib" in str(e)
+                    log(f"[viz] matplotlib is not installed: DPVO(viz=True) "
+                        f"raised ImportError({e}) {'OK' if ok else 'FAIL'}")
+                    if not ok:
+                        raise SystemExit("viz: the ImportError does not "
+                                         "name matplotlib")
+                else:
+                    raise SystemExit("viz: DPVO(viz=True) constructed "
+                                     "without matplotlib")
+            else:
+                slam, ms_on, l_on, snap_ms = viz_drive(dev, True)
+                png = (Path(tmp) / "viewer_out" / "latest.png").read_bytes()
+                npts, ncam = html_counts(
+                    (Path(tmp) / "viewer_out" / "map.html").read_text())
+                pts = slam.points[:slam.m].cpu().numpy()
+                finite = int(np.isfinite(pts).all(axis=1).sum())
+                ok = (png[:8] == b"\x89PNG\r\n\x1a\n" and npts == finite > 0
+                      and ncam == slam.n and l_on == l_off
+                      and slam.viewer._counter >= 2)
+                log(f"[viz] matplotlib {have}: configs/default.yaml at "
+                    f"480x640 with {EVAL_OVERRIDES}, {VIZ_FRAMES} frames, "
+                    f"viewer period {VIZ_PERIOD} s: PNG renders "
+                    f"{slam.viewer._counter} (latest.png {len(png)} bytes), "
+                    f"map.html embeds {npts} points of {finite} finite "
+                    f"({slam.m} patches) and {ncam} cameras; snapshots "
+                    f"{len(snap_ms)}, host ms each "
+                    + ", ".join(f"{x:.2f}" for x in snap_ms)
+                    + f"; median ms/frame (frames 10..) viz on "
+                    f"{med(ms_on):.2f}, off {med(ms_off):.2f}; hand-written "
+                    f"launches on {l_on}, off {l_off} "
+                    f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("viz: the viewer drive failed")
+            viz_export_html(tmp)
+        finally:
+            os.chdir(cwd)
+    viz_backproject(dev)
+    synchronize(dev)
+    log(f"[viz] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 11: multi-device (edge-sharded inference, data-parallel step) ---
+
+# docs/MULTICHIP.md's retain scale at full width
+SH = dict(M=96, P=3, PMEM=36, MEM=36, N_FRAMES=48, WINDOW=22, N_NOW=44,
+          N_CAP=16, K_CAP=4096, E_LIVE=32000, E_ROWS=32768, H=120, W=160)
+TOL_SH = dict(poses=(1e-4, 2e-4), net=(5e-4, 1e-3), delta=(5e-4, 1e-3),
+              weight=(5e-4, 1e-3), target=(5e-3, 1e-3), depth=(2e-3, 5e-4))
+SH_DEPTH_SHARE = 1e-3    # patches whose depth may cross a threshold
+SH_REPS = 3              # timed sharded updates (after one warm)
+TOL_DP_ONE = 1e-6        # NCCL world 1 against one process
+TOL_DP_TWO = 1e-4        # two gloo ranks on the card against one process
+
+
+def sharded_problem(dev, s, seed=0):
+    """The update's inputs at the sizes ``s`` (SH's keys): poses, patches,
+    intrinsics and the zero-padded rings drawn on ``dev`` from ``seed``
+    (every rank draws the same), the edge tables on the host.  The newest
+    frame's patches point back, so no patch has only ii == jj edges (whose
+    depth update is rounding noise times 1 / lmbda)."""
+    import torch
+    from dpvo_tpu_torch.models.update import DIM
+    from dpvo_tpu_torch.ops.corr_cuda import pad_fmap
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    M, P, NF = s["M"], s["P"], s["N_FRAMES"]
+    poses = torch.zeros(NF, 7, device=dev)
+    poses[:, 6] = 1.0
+    poses[:, 0] = 0.05 * torch.arange(NF, device=dev)
+    ctr = torch.rand(NF * M, 2, generator=g, device=dev) \
+        * torch.tensor([s["W"] - 8.0, s["H"] - 8.0], device=dev) + 4.0
+    off = torch.arange(-1.0, 2.0, device=dev)
+    patches = torch.empty(NF * M, 3, P, P, device=dev)
+    patches[:, 0] = ctr[:, 0, None, None] + off[None, None, :]
+    patches[:, 1] = ctr[:, 1, None, None] + off[None, :, None]
+    patches[:, 2] = (0.3 + 1.7 * torch.rand(NF * M, 1, 1, generator=g,
+                                            device=dev))
+    intr = torch.tensor([[80.0, 80.0, 80.0, 60.0]], device=dev).repeat(NF, 1)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    rings = dict(imap=normal(s["PMEM"] * M, DIM),
+                 gmap=normal(s["PMEM"] * M, P, P, 128),
+                 fmap1=pad_fmap(normal(s["MEM"], s["H"], s["W"], 128)),
+                 fmap2=pad_fmap(normal(s["MEM"], s["H"] // 4, s["W"] // 4,
+                                       128)))
+    n_now, E = s["N_NOW"], s["E_LIVE"]
+    kk = np.sort(rng.integers((n_now - s["WINDOW"]) * M, n_now * M, E))
+    ii = kk // M
+    step = rng.integers(1, 12, E)
+    jj = np.where(ii == n_now - 1, ii - step, np.minimum(ii + step,
+                                                         n_now - 1))
+    edges = dict(ii=ii.astype(np.int32), jj=jj.astype(np.int32),
+                 kk=kk.astype(np.int32),
+                 net=(rng.normal(size=(E, DIM)) * 0.1).astype(np.float32),
+                 target=rng.uniform(0, s["W"], (E, 2)).astype(np.float32),
+                 weight=rng.uniform(0, 1, (E, 2)).astype(np.float32))
+    return dict(poses=poses, patches=patches, intrinsics=intr, **rings), \
+        edges
+
+
+def sharded_update_mod(dev):
+    """The update operator with flax-like weights drawn on the CPU."""
+    import torch
+    from dpvo_tpu_torch.models.update import Update
+    from dpvo_tpu_torch.models.vonet import init_flax_like
+    return init_flax_like(Update(3), torch.Generator().manual_seed(0)).to(
+        dev).eval()
+
+
+def synchronize(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_sharded(group, dev, world, rank, s=SH):
+    """This rank's sharded update at the sizes ``s`` (default: the retain
+    scale): (outputs as numpy, the partition (perm, valid), launches in
+    one update, ms per update)."""
+    import torch
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.parallel.infer_step import (make_sharded_update_step,
+                                                    shard_edges_by_patch)
+    repl, edges = sharded_problem(dev, s)
+    perm, valid = shard_edges_by_patch(
+        edges["ii"], edges["jj"], edges["kk"], world,
+        e_shard=s["E_ROWS"] // world, k_cap=s["K_CAP"])
+    n = len(perm) // world
+    rows = slice(rank * n, (rank + 1) * n)
+
+    def shard(a):
+        return torch.as_tensor(a[perm][rows]).to(dev)
+
+    step = make_sharded_update_step(
+        sharded_update_mod(dev), group, M=s["M"], pmem=s["PMEM"],
+        mem=s["MEM"], n_cap=s["N_CAP"], k_cap=s["K_CAP"], span=64)
+    args = ([repl[k] for k in ("poses", "patches", "intrinsics", "imap",
+                               "gmap", "fmap1", "fmap2")]
+            + [shard(edges[k]) for k in ("net", "target", "weight", "ii",
+                                         "jj", "kk")]
+            + [torch.as_tensor(valid[rows]).to(dev), s["N_NOW"] - 10,
+               s["N_NOW"]])
+    step(*args)                                   # warm
+    synchronize(dev)
+    times = []
+    for _ in range(SH_REPS):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = step(*args)
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.launches)
+    return ([o.cpu().numpy() for o in out], perm, valid, launches,
+            sorted(times)[len(times) // 2])
+
+
+def single_device_update(dev, s=SH):
+    """engine.kernels.update_step on the same inputs, one device, TF32
+    off, with K2 swapped for its plain version (plain_correlation): the
+    sharded runs launch K2 in fp32 at these shapes, so holding them to
+    this run holds that kernel to its plain version.  Raises if K2
+    launched here."""
+    import torch
+    from types import SimpleNamespace
+    from dpvo_tpu_torch.engine import kernels
+    from dpvo_tpu_torch.ops import _cuda
+    repl, edges = sharded_problem(dev, s)
+    t = {k: torch.as_tensor(v).to(dev) for k, v in edges.items()}
+    ds = SimpleNamespace(**repl, net=t["net"], target=t["target"],
+                         weight=t["weight"], eii=t["ii"], ejj=t["jj"],
+                         ekk=t["kk"])
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k2 = _cuda.launches["corr_enc"]
+    try:
+        with torch.no_grad(), plain_correlation():
+            delta = kernels.update_step(
+                ds, sharded_update_mod(dev), s["E_LIVE"], s["N_NOW"] - 10,
+                s["N_NOW"], s["M"], s["PMEM"], s["MEM"], n_cap=s["N_CAP"],
+                k_cap=s["K_CAP"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    if _cuda.launches["corr_enc"] != k2:
+        raise SystemExit("sharded: the plain reference launched K2")
+    return [x.cpu().numpy() for x in (ds.net, ds.target, ds.weight, delta,
+                                      ds.poses, ds.patches)]
+
+
+def sharded_errors(got, perm, valid, ref):
+    """Each output of the sharded run against the single-device one, as
+    (max |err| - tolerance, ...): -> (ok, summary)."""
+    net, target, weight, delta, poses, patches = got
+    inv = np.full(len(ref[0]), -1, np.int64)
+    live = np.nonzero(valid)[0]
+    inv[perm[live]] = live
+    if (inv < 0).any():
+        raise SystemExit("sharded: an edge is missing from the partition")
+    parts, ok = [], True
+    for name, g, w in (("net", net, ref[0]), ("target", target, ref[1]),
+                       ("weight", weight, ref[2]), ("delta", delta, ref[3]),
+                       ("poses", poses, ref[4])):
+        g = g if name == "poses" else g[inv]
+        atol, rtol = TOL_SH[name]
+        viol = np.abs(g - w) - (atol + rtol * np.abs(w))
+        ok &= bool((viol <= 0).all())
+        parts.append(f"{name} max err {np.abs(g - w).max():.3e}")
+    atol, rtol = TOL_SH["depth"]
+    d_g, d_w = patches[:, 2], ref[5][:, 2]
+    bad = (np.abs(d_g - d_w) > atol + rtol * np.abs(d_w)).any(axis=(1, 2))
+    ok &= bool(bad.mean() <= SH_DEPTH_SHARE)
+    parts.append(f"depths max err {np.abs(d_g - d_w).max():.3e}, "
+                 f"{int(bad.sum())} of {len(bad)} patches past "
+                 f"{atol}/{rtol} (allowed {SH_DEPTH_SHARE:.1%})")
+    return ok, "; ".join(parts)
+
+
+def dp_batch(dev):
+    """A global batch of 2 small clips (TRAIN_SMALL), prepared from one
+    numpy seed."""
+    import train_torch
+    c = TRAIN_SMALL
+    clips = [train_clip(seed, c["N"], c["H"], c["W"]) for seed in (4, 5)]
+    stacked = [np.concatenate(parts) for parts in zip(*clips)]
+    batch = train_torch.prepare_batch(np.random.default_rng(4), *stacked,
+                                      c["M"], c["iters"])
+    return train_torch.to_device(batch, dev)
+
+
+def deterministic_process():
+    """Fix cuBLAS's workspace before this (spawned) process's first CUDA
+    call, so that run_dp can turn on deterministic algorithms: the step's
+    atomics otherwise change its rounding run to run, which the
+    ill-conditioned rollout gradient magnifies (PERF.md section 6)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+
+def run_dp(dev, group):
+    """A structure-only and a full fp32 step (TF32 off, autocast off,
+    deterministic algorithms) on this rank's rows of dp_batch; ->
+    (metrics per step, parameters)."""
+    import torch
+    from dpvo_tpu_torch.parallel.mesh import replicate, shard_batch
+    from dpvo_tpu_torch.parallel import train_step as ts
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = TRAIN_SMALL
+    batch = dp_batch(dev)
+    state = train_state(dev, seed=3, lr=1e-4, total=100)
+    if group is not None:
+        replicate(state.patchifier, group)
+        replicate(state.update, group)
+        batch = dict(batch, **shard_batch(
+            {k: v for k, v in batch.items() if not k.startswith("sch_")},
+            group))
+    metrics = []
+    try:
+        for so in (True, False):
+            step = ts.make_train_step(steps=c["iters"], M=c["M"],
+                                      structure_only=so, group=group)
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return metrics, [p.cpu().numpy() for p in params_of(state)]
+
+
+def dp_error(run, ref):
+    """Worst relative error of metrics and parameters against ``ref``."""
+    (m_a, p_a), (m_b, p_b) = run, ref
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(m_a, m_b) for k in b)
+    for a, b in zip(p_a, p_b):
+        worst = max(worst, float(np.abs(a - b).max()
+                                 / max(np.abs(b).max(), 1e-6)))
+    return worst
+
+
+def dp_reference(rank, world, init_method, device):
+    """One spawned process: the train steps without a group, then on an
+    NCCL (on the card) world of 1; -> (one process, world 1)."""
+    from dpvo_tpu_torch.parallel.mesh import make_mesh
+    deterministic_process()
+    import torch
+    single = run_dp(torch.device(device), None)
+    group, dev = make_mesh(1, device=device, init_method=init_method,
+                           rank=0, world_size=1)
+    return single, run_dp(dev, group)
+
+
+def gloo_rank(rank, world, init_method, device):
+    """One of two gloo ranks on ``device`` (spawned): the sharded update,
+    then the data-parallel train step."""
+    from dpvo_tpu_torch.parallel.mesh import make_mesh
+    deterministic_process()
+    group, dev = make_mesh(world, device=device, backend="gloo",
+                           init_method=init_method, rank=rank,
+                           world_size=world)
+    sharded = run_sharded(group, dev, world, rank)
+    return sharded, run_dp(dev, group)
+
+
+def phase_sharded(dev):
+    """Edge-sharded inference at docs/MULTICHIP.md's retain scale and the
+    data-parallel train step: (a) one NCCL rank on the card against the
+    single-device update_step with K2's plain version (so K2 in fp32 is
+    held to it at these shapes); (b) two gloo ranks on the one card (NCCL
+    refuses two ranks on one GPU) against it; then the data-parallel step,
+    NCCL world 1 and two gloo ranks against one process.  Two ranks on one
+    card measure correctness and overhead, not scale-out."""
+    import torch
+    import torch.distributed as dist
+    from dpvo_tpu_torch.parallel import launch
+    from dpvo_tpu_torch.parallel.infer_step import ba_reduce_bytes
+    from dpvo_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    s = SH
+    ref = single_device_update(dev)
+    log(f"[sharded] retain scale: {s['E_ROWS']} edge rows ({s['E_LIVE']} "
+        f"live) over a {s['WINDOW']}-frame window, M={s['M']}, P={s['P']}, "
+        f"DIM 384, maps {s['H']}x{s['W']} and {s['H'] // 4}x{s['W'] // 4} "
+        f"(480x640 frames), k_cap={s['K_CAP']}, n_cap={s['N_CAP']}, "
+        f"PMEM=MEM={s['MEM']}, fp32, TF32 off, t0={s['N_NOW'] - 10}; the "
+        f"reference: update_step with K2's plain version; BA's fused "
+        f"reduction {ba_reduce_bytes(s['N_CAP'], s['K_CAP'])} bytes per "
+        f"iteration")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        group, d0 = make_mesh(1, device=str(dev),
+                              init_method=f"file://{tmp}/nccl_store",
+                              rank=0, world_size=1)
+        try:
+            out, perm, valid, launches, ms = run_sharded(group, d0, 1, 0)
+            ok, summary = sharded_errors(out, perm, valid, ref)
+            results[1] = (ok, launches, ms)
+            log(f"[sharded] one NCCL rank ({dist.get_backend()}) vs plain "
+                f"update_step: {summary}; K2 launches per update "
+                f"{launches.get('corr_enc', 0)}, {ms:.2f} ms per sharded "
+                f"update {'OK' if ok else 'FAIL'}")
+        finally:
+            dist.destroy_process_group()
+        ((single, one),) = launch.spawn(dp_reference, 1, (str(dev),),
+                                        rendezvous_dir=tmp, timeout=600,
+                                        threads=4)
+        err_one = dp_error(one, single)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(gloo_rank, 2, (str(dev),), rendezvous_dir=tmp,
+                             timeout=600, threads=4)
+        spawn_s = time.perf_counter() - t0
+    parts = [r[0] for r in ranks]
+    got = [np.concatenate([p[0][i] for p in parts]) for i in range(4)]
+    for p in parts[1:]:
+        for i in (4, 5):
+            if not np.array_equal(p[0][i], parts[0][0][i]):
+                raise SystemExit("sharded: the ranks' poses or patches "
+                                 "differ")
+    ok2, summary = sharded_errors(got + [parts[0][0][4], parts[0][0][5]],
+                                  parts[0][1], parts[0][2], ref)
+    k2 = [p[3].get("corr_enc", 0) for p in parts]
+    log(f"[sharded] two gloo ranks on {dev} vs plain update_step: {summary}; K2 "
+        f"launches per update by rank {k2}, ms per sharded update by rank "
+        + ", ".join(f"{p[4]:.2f}" for p in parts)
+        + f" (one rank: {results[1][2]:.2f}; two ranks share one card and "
+        f"reduce through the host) {'OK' if ok2 else 'FAIL'}")
+    dp = [r[1] for r in ranks]
+    err_two = max(dp_error(r, single) for r in dp)
+    same = all(np.array_equal(a, b) for a, b in zip(dp[0][1], dp[1][1]))
+    ok_dp = err_one <= TOL_DP_ONE and err_two <= TOL_DP_TWO and same
+    log(f"[sharded] data-parallel train step (N={TRAIN_SMALL['N']}, "
+        f"{TRAIN_SMALL['H']}x{TRAIN_SMALL['W']}, M={TRAIN_SMALL['M']}, "
+        f"{TRAIN_SMALL['iters']} iterations, global batch 2, fp32, autocast "
+        f"and TF32 off, deterministic algorithms; a structure-only and a "
+        f"full step, each run in a spawned process): NCCL world 1 vs "
+        f"one process worst rel err {err_one:.3e} (tol {TOL_DP_ONE}); two "
+        f"gloo ranks vs one process {err_two:.3e} (tol {TOL_DP_TWO}), "
+        f"parameters equal across ranks {same}; loss {single[0][1]['loss']:.6f}"
+        f", gnorm {single[0][1]['gnorm']:.6f} {'OK' if ok_dp else 'FAIL'}")
+    log(f"[sharded] two spawned ranks took {spawn_s:.1f} s (start-up, "
+        f"problem, 1 + {SH_REPS} sharded updates, 2 train steps)")
+    if not (results[1][0] and ok2 and ok_dp and min(k2) > 0
+            and results[1][1].get("corr_enc", 0) > 0):
+        raise SystemExit("sharded: a check failed (see the lines above)")
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(k2_per_rank=k2)
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2192,7 +3141,7 @@ def main(argv):
         return 1
     from dpvo_tpu_torch.ops import _cuda
     phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
-              "eval", "classic", "bench")
+              "eval", "classic", "bench", "redwood", "viz", "sharded")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -2247,6 +3196,12 @@ def main(argv):
         phase_classic(dev)
     if run("bench"):
         bench = phase_bench(dev)
+    if run("redwood"):
+        phase_redwood(dev)
+    if run("viz"):
+        phase_viz(dev)
+    if run("sharded"):
+        phase_sharded(dev)
     if only is not None:
         log(f"[machine] ran {','.join(sorted(only))} alone: no kernels line")
         return 0

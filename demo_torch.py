@@ -9,8 +9,10 @@ the JAX package's ``.npz`` checkpoint (``dpvo_tpu.utils.checkpoint``
 ``save_network``); without it the weights are seeded random ones.  Outputs
 go under the working directory: ``saved_trajectories/<name>.txt`` (TUM),
 ``<name>.ply``, ``colmap_saves/<name>/`` and
-``trajectory_plots/<name>.pdf``.  Runs on the GPU unless ``--device cpu``
-is given; ``--viz`` is not ported yet and raises.
+``trajectory_plots/<name>.pdf``; ``--viz`` writes the viewer's
+``viewer_out/latest.png`` while it runs and ``viewer_out/map.html`` at the
+end (it needs matplotlib).  Runs on the GPU unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 

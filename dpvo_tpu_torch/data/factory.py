@@ -1,22 +1,18 @@
 """Dataset factory.
 
-Copy of ``dpvo_tpu/data/factory.py``; the Redwood reader is not ported yet
-(ROADMAP.md Queue 1 item 15) and raises.
+Copy of ``dpvo_tpu/data/factory.py``: ``tartan`` and ``redwood``.
 """
 from __future__ import annotations
 
 
 def dataset_factory(dataset_list, **kwargs):
     """Create a concatenated dataset from a list of names."""
+    from .redwood import Redwood
     from .tartan import TartanAir
 
-    dataset_map = {"tartan": (TartanAir,)}
+    dataset_map = {"tartan": (TartanAir,), "redwood": (Redwood,)}
     db_list = []
     for key in dataset_list:
-        if key == "redwood":
-            raise NotImplementedError(
-                "the Redwood reader is not ported yet (ROADMAP.md Queue 1 "
-                "item 15)")
         (cls,) = dataset_map[key]
         db = cls(**kwargs)
         print(f"Dataset {key} has {len(db)} images")

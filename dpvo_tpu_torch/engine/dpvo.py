@@ -38,6 +38,11 @@ The classic backend (``CLASSIC_LOOP_CLOSURE=True``,
 applies, tries to close a loop after every frame and merges each finished
 pose-graph optimisation; it needs OpenCV (``cv2``), which construction
 checks for.
+
+The viewer (``viz=True``, ``viz.viewer.Viewer``, matplotlib) gets every
+frame and, at most once a period, a host snapshot of the map taken on this
+thread; ``terminate()`` joins it, which writes ``latest.png`` and
+``map.html`` and re-raises an error of its render thread.
 """
 from __future__ import annotations
 
@@ -72,9 +77,6 @@ class DPVO:
                     "CLASSIC_LOOP_CLOSURE=True needs OpenCV (the cv2 module) "
                     "for its keypoints, matcher and frame cache; it is not "
                     "installed") from e
-        if viz:
-            raise NotImplementedError(
-                "the viewer is not ported yet (ROADMAP.md Queue 1 item 17)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ht, self.wd = ht, wd
@@ -124,6 +126,12 @@ class DPVO:
         # (counter -> (M, 2) float [x, y]) and a constant pre-init depth
         self.test_centroids = None
         self.test_fixed_depth = None
+
+        # the viewer (viz=True) raises here when matplotlib is missing
+        self.viewer = None
+        if viz:
+            from ..viz.viewer import Viewer
+            self.viewer = Viewer(self)
 
         self.long_term_lc = None
         if cfg.CLASSIC_LOOP_CLOSURE:
@@ -481,6 +489,11 @@ class DPVO:
                 f'The buffer size is too small. You can increase it using '
                 f'"--opts BUFFER_SIZE {self.N * 2}"')
 
+        if self.viewer is not None:
+            # the map as the previous frame left it, at most once a period
+            self.viewer.update_image(image)
+            self.viewer.snapshot()
+
         hs.tlist.append(tstamp)
         hs.tstamps[self.n] = hs.counter
 
@@ -576,4 +589,6 @@ class DPVO:
         poses = torch.stack([self.get_pose(t)
                              for t in range(self.hs.counter)])
         poses = lie.se3_inv(poses).numpy()
+        if self.viewer is not None:
+            self.viewer.join()
         return poses, np.array(self.hs.tlist, dtype=np.float64)

@@ -123,8 +123,9 @@ def gn_step(r, Ji, Jj, iii, jjj, n, damp, cg_iters=CG_ITERS, tol=CG_TOL):
 
 
 def perform_updates(poses_se3, dSloop, ii_loop, jj_loop, iters=30, ep=0.0,
-                    lmbda=1e-6, device="cpu"):
-    """Levenberg-Marquardt over the pose graph on ``device``.
+                    lmbda=1e-6, device="cuda"):
+    """Levenberg-Marquardt over the pose graph on ``device`` (the card
+    unless the caller names the CPU).
 
     poses_se3 (n, 7); dSloop (L, 8) Sim3 loop constraints; ii_loop,
     jj_loop (L,).  Returns the corrected Sim3 poses (n, 8) on ``device``
@@ -169,7 +170,7 @@ def perform_updates(poses_se3, dSloop, ii_loop, jj_loop, iters=30, ep=0.0,
     return lie.sim3_inv(lie.sim3_exp(Ginv))[:n_real]
 
 
-def run_pgo(pred_poses, dSloop, loop_ii, loop_jj, iters=30, device="cpu"):
+def run_pgo(pred_poses, dSloop, loop_ii, loop_jj, iters=30, device="cuda"):
     """Optimise, gauge-fix to the first pose after the loop region, and
     return the Sim3 poses (safe_i, 8) up to it as numpy (the process
     pool's task: numpy in, numpy out)."""

@@ -1,13 +1,15 @@
 """Network building blocks (PyTorch).
 
 Counterpart of ``dpvo_tpu/models/blocks.py``: ``GatedResidual``,
-``LayerNorm1D``, ``SoftAgg`` (the compact form on group-sorted rows and the
-scatter form with a trash group) and the gradient-surgery ops ``grad_clip``,
+``LayerNorm1D``, ``SoftAgg`` (the compact form on group-sorted rows, the
+scatter form with a trash group and the cross-rank form of edge-sharded
+inference) and the gradient-surgery ops ``grad_clip``,
 ``grad_zero`` and ``grad_mag`` as ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -101,6 +103,14 @@ class SoftAgg(nn.Module):
     Scatter form (``jx`` group ids in [0, num_groups), ``valid`` mask;
     training's): invalid rows go to a trash group ``num_groups``, the softmax
     weights are computed in fp32, and everything is differentiable.
+
+    Cross-rank form (``group``, a ``torch.distributed`` process group; the
+    edge-sharded step's, ``parallel.infer_step``): groups may span ranks, so
+    ``jx`` must be dense ids in [0, num_groups) that agree across the ranks.
+    The segment softmax takes three collectives: ``all_reduce(MAX)`` of the
+    per-group maxima, then ``all_reduce(SUM)`` of the (num_groups + 1, dim)
+    exp sums and of the exp-weighted value sums (the JAX package's
+    ``shard_axis`` path: pmax, psum, psum).
     """
 
     def __init__(self, dim):
@@ -111,7 +121,9 @@ class SoftAgg(nn.Module):
         self.h = nn.Linear(dim, dim)
 
     def forward(self, x, jx=None, num_groups=None, valid=None,
-                compact_meta=None, g_cap=None):
+                compact_meta=None, g_cap=None, group=None):
+        if group is not None:
+            return self._cross_rank(x, jx, num_groups, valid, group)
         if compact_meta is None:
             if valid is not None:
                 jx = torch.where(valid, jx, num_groups)
@@ -133,3 +145,26 @@ class SoftAgg(nn.Module):
         Y = T[:, self.dim:] / T[:, :self.dim].clamp(min=1e-12)
         h = self.h(Y.to(self.h.weight.dtype))
         return h[gid_orig]
+
+    def _cross_rank(self, x, jx, num_groups, valid, group):
+        S = num_groups + 1
+        if valid is not None:
+            jx = torch.where(valid, jx, num_groups)
+        jx = jx.long()
+        f = self.f(x)
+        g32 = self.g(x).float()
+        idx = jx[:, None].expand_as(g32)
+        m = torch.full((S, self.dim), float("-inf"), device=x.device)
+        m = m.scatter_reduce(0, idx, g32, "amax")
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=group)
+        # an empty group's max is -inf on every rank
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        e = torch.exp(g32 - m[jx])
+        denom = torch.zeros((S, self.dim), device=x.device).index_add_(
+            0, jx, e)
+        dist.all_reduce(denom, group=group)
+        w = e / denom.clamp(min=1e-12)[jx]
+        y = torch.zeros((S, self.dim), device=x.device).index_add_(
+            0, jx, f.float() * w)
+        dist.all_reduce(y, group=group)
+        return self.h(y.to(self.h.weight.dtype))[jx]

@@ -87,7 +87,7 @@ class Update(nn.Module):
         self.w = nn.Linear(DIM, 2)
 
     def forward(self, net, inp, corr, ii, jj, kk, valid=None, nbrs=None,
-                compact_meta=None, g_cap=None):
+                compact_meta=None, g_cap=None, shard_ctx=None):
         """One recurrent update.
 
         net, inp (E, DIM); corr (E, 882) interleaved, ("raw", feat) or
@@ -97,7 +97,12 @@ class Update(nn.Module):
         metadata and BA).  With ``compact_meta`` (cm_kk, cm_ij) and
         ``g_cap`` the SoftAggs take the compact path (the engine's; the CUDA
         kernel on the card, no backward); without, the differentiable
-        scatter path over ``compactify`` group ids (training's).  The ``d``
+        scatter path over ``compactify`` group ids (training's).  With
+        ``shard_ctx`` (group, gid_ij, g_cap), the edge-sharded step's
+        (``parallel.infer_step``): agg_kk stays rank-local (the partition
+        never splits a patch group) on the scatter path, and agg_ij reduces
+        across the process group over the dense pair ids ``gid_ij`` in
+        [0, g_cap) that agree across the ranks.  The ``d``
         and ``w`` heads' gradients pass through ``grad_clip``.
         -> (net', delta (E, 2) fp32, weight (E, 2) fp32), invalid rows 0.
         """
@@ -131,10 +136,15 @@ class Update(nn.Module):
         else:
             imax = scatter.INT_MAX
             _, ku = scatter.compactify(torch.where(valid, kk.long(), imax), E)
-            pair = torch.where(valid, ii.long() * 12345 + jj.long(), imax)
-            _, pu = scatter.compactify(pair, E)
             net = net + self.agg_kk(net, ku, E, valid)
-            net = net + self.agg_ij(net, pu, E, valid)
+            if shard_ctx is not None:
+                group, gid_ij, g_cap = shard_ctx
+                net = net + self.agg_ij(net, gid_ij, g_cap, valid,
+                                        group=group)
+            else:
+                pair = torch.where(valid, ii.long() * 12345 + jj.long(), imax)
+                _, pu = scatter.compactify(pair, E)
+                net = net + self.agg_ij(net, pu, E, valid)
 
         net = self.gru_res1(self.gru_norm1(net))
         net = self.gru_res2(self.gru_norm2(net))

@@ -2,7 +2,8 @@
 poses (6-dof) and per-patch inverse depths (1-dof).
 
 Counterpart of ``dpvo_tpu/ops/ba.py``'s ``ba_iterative`` (the dense window
-solve of local BA), ``ba_global`` (the matrix-free Schur solve with
+solve of local BA), ``ba_iterative_sharded`` (its edge-sharded form over a
+``torch.distributed`` process group), ``ba_global`` (the matrix-free Schur solve with
 block-Jacobi PCG of global BA) and ``ba_differentiable`` (training's GN
 step, differentiable through the Cholesky solve).  ``ba_iterative``: the reference's
 robust masks (residual < 128 px, Z > 0.2, +-64 px in bounds), damping
@@ -15,6 +16,7 @@ columns reduce over kk-sorted runs through ``ops.agg_cuda.segment_sums``
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from . import agg_cuda, lie, projective as pops
 from .scatter import INT_MAX, compactify
@@ -194,6 +196,127 @@ def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
         patches[:, 2] = torch.where(hit_k[:, None, None], d_k[:, None, None],
                                     patches[:, 2])
         ctr[:, 2] = torch.where(hit_k, d_k, ctr[:, 2])
+    return poses, patches
+
+
+def ba_iterative_sharded(poses, patches, intrinsics, target, weight, lmbda,
+                         ii, jj, kk, valid, t0, t1, n_cap, k_cap, iterations,
+                         group):
+    """Edge-sharded ``ba_iterative`` over a ``torch.distributed`` process
+    group (the JAX package's ``ba_iterative_sharded`` inside ``shard_map``).
+
+    Every rank holds a slice of the edge tables and the same poses,
+    patches and intrinsics; it computes its partial normal equations, one
+    ``all_reduce(SUM)`` of (B (D, D), v (D,), E (D, k_cap), C/u (k_cap, 2))
+    flattened into one buffer sums them, and every rank solves the same
+    small damped Schur system and applies the same retractions, so the
+    poses and patches stay equal across ranks.  No per-edge data crosses
+    ranks.  The masks, the damping, the skipped update on a failed
+    factorisation and the depth reset are ``ba_iterative``'s; the patch
+    slots are the dense ``kk - k_lo`` mapping (k_lo the smallest live
+    patch id over all ranks, an ``all_reduce(MIN)``), not the sorted
+    compaction: edges whose ``kk - k_lo`` falls outside ``k_cap`` get no
+    weight (``parallel.infer_step.shard_edges_by_patch(..., k_cap=...)``
+    checks the span on the host first).  Every rank makes the same
+    collectives in the same order, with or without live rows.
+    """
+    poses = poses.float()
+    patches = patches.float().clone()
+    target = target.float()
+    weight = weight.float()
+    fx, fy, cx, cy = intrinsics.float().unbind()
+    dev = poses.device
+    E = ii.shape[0]
+    K = patches.shape[0]
+    P = patches.shape[-1]
+    ii, jj, kk = ii.long(), jj.long(), kk.long()
+
+    k_lo = torch.full((1,), INT_MAX, dtype=torch.int64, device=dev)
+    if E:
+        k_lo = torch.minimum(k_lo, torch.where(valid, kk, INT_MAX).min())
+    dist.all_reduce(k_lo, dist.ReduceOp.MIN, group=group)
+    rel = kk - k_lo
+    in_rng = valid & (rel >= 0) & (rel < k_cap)
+    slot = torch.where(in_rng, rel.clamp(0, k_cap - 1), k_cap)
+
+    # global slot -> patch row (the same on every rank); rows >= K dropped
+    slot_rows = k_lo + torch.arange(k_cap, device=dev)
+    slot_rows_c = slot_rows.clamp(0, K - 1)
+    live = slot_rows < K
+    cnt = torch.zeros(k_cap + 1, device=dev).index_add_(
+        0, slot, in_rng.float())[:k_cap]
+    dist.all_reduce(cnt, group=group)
+    touched = (cnt > 0) & live
+
+    ctr = patches[:, :, P // 2, P // 2].clone()             # (K, 3)
+    D = 6 * n_cap
+    cols = torch.arange(n_cap, device=dev)
+    pose_slot = torch.arange(poses.shape[0], device=dev)
+    lp = pose_slot - t0
+    free = ((lp >= 0) & (pose_slot < t1))[:, None]
+    lp_c = lp.clamp(0, n_cap - 1)
+    sizes = (D * D, D, D * k_cap, 2 * k_cap)
+
+    for _ in range(iterations):
+        r, mask, Ji, Jj, Jz = _edge_terms_center(
+            poses, ctr, fx, fy, cx, cy, target, ii, jj, kk)
+        w = mask[:, None] * weight * in_rng[:, None]         # (E, 2)
+
+        li, lj = ii - t0, jj - t0
+        vi = (li >= 0) & (li < n_cap) & in_rng
+        vj = (lj >= 0) & (lj < n_cap) & in_rng
+        oh_i = ((li.clamp(0, n_cap - 1)[:, None] == cols)
+                & vi[:, None]).float()
+        oh_j = ((lj.clamp(0, n_cap - 1)[:, None] == cols)
+                & vj[:, None]).float()
+        Jeff = (-oh_i[:, None, :, None] * Ji[:, :, None, :]
+                + oh_j[:, None, :, None] * Jj[:, :, None, :]
+                ).reshape(E, 2, D)
+        wJeff = w[:, :, None] * Jeff
+
+        B = wJeff.reshape(-1, D).t() @ Jeff.reshape(-1, D)
+        vvec = torch.einsum("era,er->a", wJeff, r)
+        A = torch.einsum("er,era->ea", w * Jz, Jeff)         # (E, D)
+        Emat = torch.zeros(k_cap + 1, D, device=dev).index_add_(
+            0, slot, A)[:k_cap].t()                          # (D, k_cap)
+        Cu_rows = torch.stack([(w * Jz * Jz).sum(1), (w * r * Jz).sum(1)],
+                              dim=-1)
+        Cu = torch.zeros(k_cap + 1, 2, device=dev).index_add_(
+            0, slot, Cu_rows)[:k_cap]
+
+        # ONE cross-rank reduction of all the partials
+        buf = torch.cat([B.reshape(-1), vvec, Emat.reshape(-1),
+                         Cu.reshape(-1)])
+        dist.all_reduce(buf, group=group)
+        B, vvec, Emat, Cu = buf.split(sizes)
+        B, Emat, Cu = B.view(D, D), Emat.view(D, k_cap), Cu.view(k_cap, 2)
+        C, u = Cu[:, 0], Cu[:, 1]
+
+        Q = 1.0 / (C + lmbda)
+        EQ = Emat * Q[None, :]
+        S = B - EQ @ Emat.t()
+        y = vvec - EQ @ u
+        S = S + torch.diag(1e-4 * torch.diagonal(S) + 1.0)
+
+        L, info = torch.linalg.cholesky_ex(S)
+        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
+        ok = (info == 0) & torch.isfinite(dX).all()
+        dX = torch.where(ok, dX, torch.zeros_like(dX))
+        dZ = Q * (u - Emat.t() @ dX)
+        dZ = torch.where(ok, dZ, torch.zeros_like(dZ))
+
+        dxi = torch.where(free, dX.reshape(n_cap, 6)[lp_c],
+                          torch.zeros((), device=dev))
+        poses = torch.where(free, lie.se3_retr(poses, dxi), poses)
+
+        d_old = patches[slot_rows_c, 2, 0, 0]
+        d_new = d_old + dZ
+        d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
+        d_new = d_new.clamp(min=1e-4)
+        d_new = torch.where(touched, d_new, d_old)
+        rows = slot_rows[live]
+        patches[rows, 2] = d_new[live][:, None, None].expand(-1, P, P)
+        ctr[rows, 2] = d_new[live]
     return poses, patches
 
 

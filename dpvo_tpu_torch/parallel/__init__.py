@@ -1,2 +1,4 @@
-"""The training step on one GPU (``train_step``).  The data-parallel mesh
-of the JAX package's ``parallel/`` is not ported yet (ROADMAP.md)."""
+"""Multi-device runs on ``torch.distributed``, one process per device:
+``mesh`` (process group, batch rows, broadcast), ``launch`` (spawned ranks
+on one host), ``infer_step`` (edge-sharded tracking update) and
+``train_step`` (the training step, on one device or data-parallel)."""

@@ -1,11 +1,19 @@
-"""The training step on one GPU (PyTorch).
+"""The training step (PyTorch), on one device or data-parallel.
 
 Counterpart of ``dpvo_tpu/parallel/train_step.py``: encoders, patch
 extraction, the recurrent rollout with differentiable BA, the loss, its
 gradient and the optimizer update, for a batch whose samples run one after
 another (the JAX package's ``vmap``: the loss is the mean of the per-sample
-losses; each sample's backward accumulates into the gradients).  The
-data-parallel mesh is ROADMAP.md Queue 1 item 16.
+losses; each sample's backward accumulates into the gradients).
+
+Data-parallel (``group``, a ``torch.distributed`` process group, one rank
+per device; the JAX package's mesh with the batch sharded over ``dp``):
+each rank runs its rows of the global batch, each sample's backward adds
+``grad / B_global``, one ``all_reduce(SUM)`` of the flattened gradients
+then gives every rank the global mean, which the global-norm clip and the
+AdamW update read, so every rank applies the same update.  The metrics are
+reduced to their global means the same way.  No DDP wrapper: one explicit
+reduction after the per-sample backwards.
 
 The optimizer is ``optax.chain(clip_by_global_norm(clip), adamw(schedule,
 weight_decay))`` with optax's defaults (``ClippedAdamW``): the clip scales
@@ -24,6 +32,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.update import Update
 from ..models.vonet import Patchifier
@@ -212,8 +221,19 @@ def _sample_rollout(patchifier, update_mod, batch, b, sch, steps, M,
     return out, tr, ro, fr
 
 
+def _all_reduce_grads(params, group):
+    """Sum the parameters' gradients over the ranks in one flattened
+    buffer (a parameter without a gradient contributes zeros)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
+
+
 def make_train_step(steps=18, M=80, structure_only=False, flow_weight=0.1,
-                    pose_weight=10.0, amp=False):
+                    pose_weight=10.0, amp=False, group=None):
     """Returns train_step(state, batch) -> (state, metrics), which trains
     the state's modules.
 
@@ -226,15 +246,21 @@ def make_train_step(steps=18, M=80, structure_only=False, flow_weight=0.1,
     The state's modules and optimizer are updated in place; metrics are
     0-d tensors on the device: the batch means of flow_err, px1, tr, ro,
     r1, r2, t1, t2 and kl at the last rollout step, the loss, and gnorm
-    (the global gradient norm before the clip).
+    (the global gradient norm before the clip).  With ``group`` the batch
+    holds this rank's rows of the global batch (``mesh.shard_batch``),
+    every rank holds the same state, and the gradients and metrics are the
+    global batch's.
     """
+    world = 1 if group is None else dist.get_world_size(group)
+
     def train_step(state: TrainState, batch):
         dev = batch["images"].device
-        B = batch["images"].shape[0]
+        B_local = batch["images"].shape[0]
+        B = B_local * world
         sch = _rollout_schedule(batch, dev)
         state.opt.zero_grad()
         totals = {}
-        for b in range(B):
+        for b in range(B_local):
             out, tr, ro, fr = _sample_rollout(
                 state.patchifier, state.update, batch, b, sch, steps, M,
                 structure_only, amp)
@@ -250,6 +276,12 @@ def make_train_step(steps=18, M=80, structure_only=False, flow_weight=0.1,
                       "kl": torch.zeros((), device=dev), "loss": loss}
             for k, v in sample.items():
                 totals[k] = totals.get(k, 0.0) + v.detach() / B
+        if group is not None:
+            _all_reduce_grads(state.opt.params, group)
+            keys = list(totals)
+            flat = torch.stack([totals[k] for k in keys])
+            dist.all_reduce(flat, group=group)
+            totals = dict(zip(keys, flat.unbind()))
         gnorm = state.opt.step()
         state.step += 1
         return state, dict(totals, gnorm=gnorm)

@@ -227,7 +227,7 @@ def test_pgo_jacobians_on_the_loop_edges(loop):
 
 def test_pgo_perform_updates_matches_jax(loop):
     n, args, want = loop
-    got = pgo.perform_updates(*args, iters=20).numpy()
+    got = pgo.perform_updates(*args, iters=20, device="cpu").numpy()
     assert got.shape == want.shape == (n, 8)
     np.testing.assert_allclose(aligned(got), aligned(want), atol=1e-3)
     # and the loop closed: the last pose moved towards the first
@@ -246,6 +246,21 @@ def test_pgo_is_ill_conditioned_below_1e_4(loop):
     assert np.abs(aligned(again) - aligned(want)).max() > 1e-4
 
 
+def test_pgo_runs_on_the_card_unless_told_otherwise():
+    """``perform_updates`` and ``run_pgo`` follow the port's device rule: a
+    caller who wants the CPU names it; without a card the default raises."""
+    poses, C = drifted_loop(40)
+    args = (poses, C, np.array([39]), np.array([0]))
+    if torch.cuda.is_available():
+        assert pgo.perform_updates(*args, iters=2).device.type == "cuda"
+        return
+    for fn in (pgo.perform_updates, pgo.run_pgo):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args, iters=2)
+    assert pgo.perform_updates(*args, iters=2, device="cpu").device.type \
+        == "cpu"
+
+
 def test_run_pgo_clamps_safe_i_like_jax():
     """The loop's newer end is the newest pose: safe_i is one past the
     end, JAX's gather clamps it to the last pose and so does the port; all
@@ -253,7 +268,8 @@ def test_run_pgo_clamps_safe_i_like_jax():
     n = 40
     poses, C = drifted_loop(n)
     args = (poses, C, np.array([n - 1]), np.array([0]))
-    got, want = pgo.run_pgo(*args), np.asarray(jpgo.run_pgo(*args))
+    got, want = (pgo.run_pgo(*args, device="cpu"),
+                 np.asarray(jpgo.run_pgo(*args)))
     assert got.shape == want.shape == (n, 8)
     np.testing.assert_allclose(got, want, atol=1e-3)
     np.testing.assert_allclose(got[-1, :7], poses[-1], atol=1e-5)
@@ -261,7 +277,8 @@ def test_run_pgo_clamps_safe_i_like_jax():
     # a loop ending inside: gauge-fixed on the pose after it, which is not
     # returned
     args = (poses, C, np.array([n - 5]), np.array([0]))
-    got, want = pgo.run_pgo(*args), np.asarray(jpgo.run_pgo(*args))
+    got, want = (pgo.run_pgo(*args, device="cpu"),
+                 np.asarray(jpgo.run_pgo(*args)))
     assert got.shape == want.shape == (n - 4, 8)
     np.testing.assert_allclose(got, want, atol=1e-3)
 

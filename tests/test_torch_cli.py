@@ -127,10 +127,11 @@ def test_default_config_constructs_with_loop_closure():
     assert slam.hs.n_inac == 0 and not slam.ran_global_ba.any()
 
 
-def test_demo_torch_rejects_what_is_not_ported(tmp_path):
-    """The viewer raises, naming the ROADMAP item that ports it; a
-    reference ``.pth`` loads (tests/test_torch_eval.py holds its
-    conversion) and the classic loop-closure backend constructs."""
+def test_demo_torch_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    """Nothing is left unported: the viewer constructs (and joins with
+    nothing to draw; tests/test_torch_viz.py drives it), a reference
+    ``.pth`` loads (tests/test_torch_eval.py holds its conversion) and the
+    classic loop-closure backend constructs."""
     ref = {f"update.d.1.{k}": torch.zeros(v) for k, v in
            (("weight", (2, 384)), ("bias", (2,)))}
     torch.save(ref, tmp_path / "weights.pth")
@@ -138,11 +139,19 @@ def test_demo_torch_rejects_what_is_not_ported(tmp_path):
     assert p_sd is None and set(u_sd) == {"d.weight", "d.bias"}
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
-    with pytest.raises(NotImplementedError, match="viewer"):
-        DPVO(VOConfig(), ht=96, wd=128, viz=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        DPVO(VOConfig(LOOP_CLOSURE=True), ht=96, wd=128, viz=True,
-             device="cpu")
+    monkeypatch.chdir(tmp_path)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="matplotlib"):
+            DPVO(VOConfig(), ht=96, wd=128, viz=True, device="cpu")
+    else:
+        for lc in (False, True):
+            slam = DPVO(VOConfig(LOOP_CLOSURE=lc), ht=96, wd=128, viz=True,
+                        device="cpu")
+            assert slam.viewer is not None
+            slam.viewer.join()
+            assert not slam.viewer._thread.is_alive()
     pytest.importorskip("cv2")
     for lc in (False, True):
         slam = DPVO(VOConfig(CLASSIC_LOOP_CLOSURE=True, LOOP_CLOSURE=lc),

@@ -1,7 +1,9 @@
 """The port stands alone: ``dpvo_tpu_torch``, its entry points
 (``bench_torch.py``, ``demo_torch.py``, ``train_torch.py``, the five
-``evaluate_*_torch.py``, ``scripts/dev/corr_variants_torch.py``) and
-``chip_smoke.py`` import nothing of JAX, flax or the JAX package, and the
+``evaluate_*_torch.py``, ``scripts/dev/corr_variants_torch.py``,
+``scripts/build_redwood_pickle_torch.py``, ``scripts/multi_gpu_torch.py``),
+the spawned ranks' ``tests/torch_ranks.py`` and ``chip_smoke.py`` import
+nothing of JAX, flax or the JAX package, and the
 smoke script refuses to run without a CUDA card or outside the
 repository."""
 import ast
@@ -19,6 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpvo_tpu")
 PORT_FILES = sorted((ROOT / "dpvo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "demo_torch.py",
     ROOT / "train_torch.py", ROOT / "scripts" / "dev" / "corr_variants_torch.py",
+    ROOT / "scripts" / "build_redwood_pickle_torch.py",
+    ROOT / "scripts" / "multi_gpu_torch.py", ROOT / "tests" / "torch_ranks.py",
     *(ROOT / f"evaluate_{name}_torch.py"
       for name in ("tartan", "euroc", "kitti", "tum", "icl_nuim"))]
 

@@ -22,7 +22,12 @@ until the 5 best agree within 10% and the best is 3 windows old, at most
 24).  Frames are uploaded ahead of use from pinned host buffers.  Prints
 ``bench.py``'s JSON line (``value`` is the median of the 5 best windows'
 frames/sec of the merge regime, ``value_retain`` the retain regime's);
-each regime's live-edge count goes to stderr.
+each regime's live-edge count goes to stderr.  With ``DPVO_TIMING=1`` the
+engine's phase timers run over the windows (host dispatch time: no device
+synchronise at the phases' ends, as ``bench.py`` measures them;
+``DPVO_TIMING=block`` fences each phase with one instead), and each
+regime logs ``timing_report()`` to stderr after its windows; the JSON line
+is the same.
 """
 from __future__ import annotations
 
@@ -92,7 +97,7 @@ class FrameFeed:
 
 def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                n_bench=40, min_windows=9, max_windows=24, profile_frames=0,
-               seed=0, **overrides):
+               seed=0, timing=False, timing_block=False, **overrides):
     """One pinned-regime capture.  -> dict: ``fps`` (median of the 5 best
     windows), ``median_fps``, ``windows`` (frames/sec each), ``edges``
     (live edges at each window's end), ``edges_range`` (least and most
@@ -100,7 +105,10 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     ``colors`` (the map before terminate()), ``poses`` and ``tstamps``
     (terminate()'s), and with ``profile_frames`` the ``profile`` of that
     many more frames run under torch.profiler: (profiler, wall ms,
-    frames)."""
+    frames).  With ``timing`` the engine's phase timers run over the
+    windows (``timing_block``: each phase fenced by a device synchronise;
+    off, the host's dispatch time) and ``timing`` holds their
+    ``timing_report()``, else None."""
     import torch
     from dpvo_tpu_torch.device import resolve_device
     from dpvo_tpu_torch.engine import DPVO
@@ -124,6 +132,8 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
             f"{(time.perf_counter() - tw) * 1000:.0f}ms "
             f"(edges {slam.hs.e_num})")
     sync()
+    slam.enable_timing = timing
+    slam.timing_block = timing_block
 
     windows, edges, per_frame = [], [], []
     t = n_warm
@@ -143,6 +153,12 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
             since_best = len(windows) - 1 - windows.index(max(windows))
             if top[0] > 0.9 * top[-1] and since_best >= 3:
                 break
+    report = None
+    if timing:
+        slam.enable_timing = False
+        report = slam.timing_report()
+        for k, (ms, cnt) in report.items():
+            log(f"  {k:20s} {ms:8.2f} ms  x{cnt}")
 
     profile = None
     if profile_frames:
@@ -171,7 +187,7 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                 edges_range=(min(per_frame), max(per_frame)),
                 keyframes=keyframes,
                 points=points, colors=colors, poses=poses, tstamps=tstamps,
-                profile=profile)
+                profile=profile, timing=report)
 
 
 def bench_line(results):
@@ -196,9 +212,12 @@ def main(argv=None):
                     help="torch device (default: the GPU; raises without)")
     args = ap.parse_args(argv)
     regimes = os.environ.get("DPVO_BENCH_REGIMES", "merge,retain")
+    timing = os.environ.get("DPVO_TIMING", "")
     results = {}
     for regime in (r.strip() for r in regimes.split(",")):
-        results[regime] = run_regime(regime, device=args.device)
+        results[regime] = run_regime(regime, device=args.device,
+                                     timing=bool(timing),
+                                     timing_block=timing == "block")
         log(f"[{regime}] live edges at the windows' ends: "
             f"{results[regime]['edges']}")
     print(json.dumps(bench_line(results)))

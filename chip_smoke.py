@@ -136,14 +136,28 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    most 0.1% of patches' depths past theirs), K2's launches per rank and
    ms per sharded update; the data-parallel train step, NCCL world 1 and
    two gloo ranks against one process;
-13. the kernels line (one JSON object; ``launches`` from the bench merge
+13. tools (the measurement layer): ``bench_torch.run_regime``'s merge
+   regime for two windows with the engine's phase timers on, once timing
+   host dispatch and once fencing each phase with a device synchronise
+   (all nine phases present; the phases no other phase holds,
+   ``track_frame``, ``append_factors``, ``update/*`` and ``keyframe``,
+   summing to no more than the windows' wall time); ``DPVO.motionmag`` on
+   the card against the CPU for every frame pair with edges after the
+   small never-merge drive, on the CPU engine's state (rtol 1e-4, atol
+   1e-5; the drives' own states compared beside it); then each dev bench
+   (``scripts/dev/*_torch.py``, ``benchmarks/*_torch.py``) at its quick
+   setting through its ``main``, which must return 0 and print only finite
+   numbers, with K2, K3 and K4 launched in the kernel arms of
+   ``bench_profile_torch`` and ``bench_ablate_torch`` and K2 not in their
+   plain-correlation arms;
+14. the kernels line (one JSON object; ``launches`` from the bench merge
    drive, for corr_fused from the version-12 drive, for corr_single,
    which no engine path runs, from phase 2, for the probes from the D3
    path), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
-eval, classic, bench, redwood, viz, sharded)
+eval, classic, bench, redwood, viz, sharded, tools)
 runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -3134,6 +3148,178 @@ def phase_sharded(dev):
     return dict(k2_per_rank=k2)
 
 
+# --- phase 13: the measurement layer ----------------------------------------
+
+TIMED_PHASES = ("append_factors", "keyframe", "keyframe/apply",
+                "keyframe/launch", "keyframe/result", "keyframe/retire",
+                "track_frame", "update/meta", "update/step")
+# the phases no other phase holds (keyframe holds keyframe/*)
+DISJOINT_PHASES = ("track_frame", "append_factors", "update/meta",
+                   "update/step", "keyframe")
+TOL_MOTIONMAG = (1e-4, 1e-5)   # rtol, atol
+# each dev bench and its quick setting, in the order of the port's list
+TOOLS = (("scripts/dev/frame_profile_torch.py", ["quick"]),
+         ("scripts/dev/bench_profile_torch.py", ["quick"]),
+         ("scripts/dev/bench_ablate_torch.py", ["quick"]),
+         ("scripts/dev/update_net_profile_torch.py", ["quick"]),
+         ("scripts/dev/corr_block_profile_torch.py", ["quick"]),
+         ("scripts/dev/ba_bench_torch.py", ["cg", "quick"]),
+         ("scripts/dev/train_bench_torch.py", ["quick"]),
+         ("scripts/dev/roofline_torch.py", ["quick"]),
+         ("benchmarks/compare_scatter_torch.py", []),
+         ("benchmarks/benchmark_dataloader_torch.py", ["quick"]),
+         ("scripts/dev/lc_match_bench_torch.py", []))
+# the arms whose K2/K3/K4 launches are checked: (tool, arm) -> kernels arm
+TOOL_ARMS = {("bench_profile", "update_step kernels"): True,
+             ("bench_profile", "update_step plain correlation"): False,
+             ("bench_ablate", "full"): True,
+             ("bench_ablate", "plain correlation"): False}
+
+
+def phase_timing(dev):
+    """The merge regime of bench_torch.run_regime for two windows with the
+    phase timers on, timing host dispatch and then fencing each phase."""
+    import bench_torch
+    for block in (False, True):
+        r = bench_torch.run_regime("merge", device=dev, min_windows=2,
+                                   max_windows=2, timing=True,
+                                   timing_block=block)
+        report = r["timing"]
+        frames = 40 * len(r["windows"])
+        wall = sum(40 / w for w in r["windows"]) * 1e3
+        disjoint = sum(ms * cnt for k, (ms, cnt) in report.items()
+                       if k in DISJOINT_PHASES)
+        mode = "fenced" if block else "dispatch"
+        log(f"[tools] phase timers, merge, {mode}: {frames} frames, "
+            f"{wall / frames:.2f} ms/frame wall (windows "
+            + ", ".join(f"{1e3 / w:.2f}" for w in r["windows"])
+            + " ms/frame); per phase mean ms x count = ms/frame: "
+            + "; ".join(f"{k} {ms:.3f} x{cnt} = {ms * cnt / frames:.3f}"
+                        for k, (ms, cnt) in report.items())
+            + f"; disjoint phases {disjoint / frames:.2f} ms/frame")
+        if tuple(report) != TIMED_PHASES or not disjoint <= wall:
+            raise SystemExit(f"tools: the phase report ({mode}) has "
+                             f"{tuple(report)}, disjoint phases {disjoint:.1f}"
+                             f" ms against {wall:.1f} ms of wall time")
+
+
+def motionmag_pairs(dev, network):
+    """The small never-merge drive on ``dev``, not terminated: (engine,
+    its frame pairs with edges)."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    slam = small_seams(DPVO(VOConfig(**SMALL, KEYFRAME_THRESH=0.0),
+                            network=network, ht=SMALL_HW[0], wd=SMALL_HW[1],
+                            device=dev))
+    for t, img in enumerate(small_frames()):
+        slam(t, img, SMALL_INTR)
+    e = slam.hs.e_num
+    return slam, sorted(set(zip(slam.hs.ii[:e].tolist(),
+                                slam.hs.jj[:e].tolist())))
+
+
+def phase_motionmag(dev):
+    """DPVO.motionmag on the card against the CPU, every pair with edges."""
+    import torch
+    network = small_network()
+    card, pairs = motionmag_pairs(dev, network)
+    cpu, pairs_cpu = motionmag_pairs(torch.device("cpu"), network)
+    if pairs != pairs_cpu:
+        raise SystemExit("tools: the small drive's edges differ card "
+                         "against CPU")
+    own = [(card.motionmag(i, j), cpu.motionmag(i, j)) for i, j in pairs]
+    for name in ("poses", "patches", "intrinsics"):
+        getattr(card.ds, name).copy_(getattr(cpu.ds, name))
+    same = [(card.motionmag(i, j), cpu.motionmag(i, j)) for i, j in pairs]
+    rtol, atol = TOL_MOTIONMAG
+
+    def worst(vals):
+        return max(abs(a - b) / max(abs(b), atol / rtol) for a, b in vals)
+
+    ok = all(abs(a - b) <= atol + rtol * abs(b) for a, b in same)
+    log(f"[tools] motionmag, card against CPU, {len(pairs)} frame pairs of "
+        f"the small never-merge drive: on the CPU engine's state worst "
+        f"relative error {worst(same):.3e} (rtol {rtol}, atol {atol}); on "
+        f"each device's own drive {worst(own):.3e}; magnitudes "
+        f"{min(b for _, b in same):.4f}..{max(b for _, b in same):.4f} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("tools: motionmag on the card disagrees with the "
+                         "CPU")
+
+
+def run_tool(path, argv):
+    """Load a dev bench by path and run its ``main(argv)`` with its output
+    captured (and logged); -> the output.  It must return 0 and print no
+    non-finite number."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(Path(path).stem,
+                                                  Path(__file__).parent / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    out = buf.getvalue()
+    for text in out.splitlines():
+        log(f"[tools] {Path(path).stem} | {text}")
+    bad = re.findall(r"(?<![A-Za-z])(?:nan|inf)(?![A-Za-z])", out, re.I)
+    log(f"[tools] {path} {' '.join(argv)}: returned {rc} in "
+        f"{time.perf_counter() - t0:.1f} s"
+        + (f", non-finite numbers {bad}" if bad else ""))
+    if rc != 0 or bad:
+        raise SystemExit(f"tools: {path} returned {rc}, non-finite {bad}")
+    return out
+
+
+def check_tool_arms(tool, out):
+    """K2, K3 and K4 launched in the kernel arms, K2 not in the plain
+    correlation arms."""
+    seen = set()
+    num = r"(\d+(?:\.\d+)?)"
+    for m in re.finditer(r"^\[(\w+)\] ([^:(\n]+?)(?: \(E=\d+\))?: .*launches "
+                         rf"K2 {num} K3 {num} K4 {num}", out, re.M):
+        arm = (m.group(1), m.group(2))
+        if arm not in TOOL_ARMS:
+            continue
+        k2, k3, k4 = (float(m.group(i)) for i in (3, 4, 5))
+        ok = (min(k2, k3, k4) > 0 if TOOL_ARMS[arm]
+              else k2 == 0 and min(k3, k4) > 0)
+        if not ok:
+            raise SystemExit(f"tools: {arm} launched K2 {k2}, K3 {k3}, "
+                             f"K4 {k4}")
+        seen.add(arm)
+    want = {a for a in TOOL_ARMS if a[0] == tool}
+    if seen != want:
+        raise SystemExit(f"tools: {tool} printed arms {seen}, not {want}")
+
+
+def phase_tools(dev):
+    """The measurement layer: the phase timers, motionmag, the dev
+    benches."""
+    t_phase = time.perf_counter()
+    phase_timing(dev)
+    phase_motionmag(dev)
+    here = str(Path(__file__).resolve().parent / "scripts" / "dev")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    for path, argv in TOOLS:
+        if path.endswith("lc_match_bench_torch.py"):
+            try:
+                import cv2  # noqa: F401
+            except ImportError:
+                log(f"[tools] {path}: not run (OpenCV, cv2, is not "
+                    f"installed here)")
+                continue
+        out = run_tool(path, argv)
+        tool = Path(path).stem.removesuffix("_torch")
+        if tool in ("bench_profile", "bench_ablate"):
+            check_tool_arms(tool, out)
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -3141,7 +3327,8 @@ def main(argv):
         return 1
     from dpvo_tpu_torch.ops import _cuda
     phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
-              "eval", "classic", "bench", "redwood", "viz", "sharded")
+              "eval", "classic", "bench", "redwood", "viz", "sharded",
+              "tools")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -3202,6 +3389,8 @@ def main(argv):
         phase_viz(dev)
     if run("sharded"):
         phase_sharded(dev)
+    if run("tools"):
+        phase_tools(dev)
     if only is not None:
         log(f"[machine] ran {','.join(sorted(only))} alone: no kernels line")
         return 0

@@ -43,11 +43,21 @@ The viewer (``viz=True``, ``viz.viewer.Viewer``, matplotlib) gets every
 frame and, at most once a period, a host snapshot of the map taken on this
 thread; ``terminate()`` joins it, which writes ``latest.png`` and
 ``map.html`` and re-raises an error of its render thread.
+
+Phase timers (off by default, the JAX engine's): set ``enable_timing``,
+run frames, read ``timing_report()``.  Each phase is wall time on the host
+clock; with ``timing_block`` (the default) both ends of a phase first
+synchronise the card, so the time covers the phase's device work, and
+without it the time is the host's dispatch alone.  The phases nest:
+``keyframe`` holds ``keyframe/*``, and ``update/meta`` and
+``update/step`` lie inside no other phase, so only ``track_frame``,
+``append_factors``, ``update/*`` and ``keyframe`` are disjoint.
 """
 from __future__ import annotations
 
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -85,6 +95,10 @@ class DPVO:
         self.N = cfg.BUFFER_SIZE
         self.RES = 4
         self.is_initialized = False
+        # per-phase wall timing: {phase: [seconds, ...]}
+        self.enable_timing = False
+        self.timing_block = True
+        self.timings: dict[str, list] = {}
 
         # frame memory sizes
         self.mem = 36
@@ -157,6 +171,30 @@ class DPVO:
             update.load_state_dict(u_sd)
         self.patchifier = patchifier.to(self.device, self.ctype).eval()
         self.update_mod = update.to(self.device, self.ctype).eval()
+
+    # --- phase timing ------------------------------------------------------
+
+    def _fence(self):
+        if self.timing_block and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tick(self):
+        if not self.enable_timing:
+            return 0.0
+        self._fence()
+        return time.perf_counter()
+
+    def _tock(self, t0, name):
+        if not self.enable_timing:
+            return
+        self._fence()
+        self.timings.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def timing_report(self):
+        """{phase: (mean_ms, count)} over all recorded frames, sorted by
+        phase."""
+        return {k: (1e3 * float(np.mean(v)), len(v))
+                for k, v in sorted(self.timings.items())}
 
     # --- small helpers -----------------------------------------------------
 
@@ -292,12 +330,16 @@ class DPVO:
                       and (hs.ii[:hs.e_num]
                            < self.n - cfg.REMOVAL_WINDOW - 1).any())
         t0 = self.n - cfg.OPTIMIZATION_WINDOW if self.is_initialized else 1
+        t_meta = self._tick()
         cand = self._candidate() if cfg.ASYNC_KEYFRAME else None
+        k_cap = self._update_k_cap()
+        self._tock(t_meta, "update/meta")
+        # as in the JAX engine, update/step times the local-BA branch only
+        t_up = self._tick() if not run_global else 0.0
         kernels.update_step(
             self.ds, self.update_mod, hs.e_num, max(t0, 1), self.n,
             M=self.M, pmem=self.pmem, mem=self.mem, n_cap=self.n_cap,
-            k_cap=self._update_k_cap(), iterations=2,
-            run_ba=not run_global)
+            k_cap=k_cap, iterations=2, run_ba=not run_global)
         if cand is not None:
             # the candidate's magnitude on the poses of this update step
             # (after local BA, or before global BA), queued
@@ -307,6 +349,8 @@ class DPVO:
                 tcand))
         if run_global:
             self._run_global_ba()
+        else:
+            self._tock(t_up, "update/step")
 
     def _update_k_cap(self):
         """The patch capacity of an update (its groups are k_cap + 8):
@@ -363,6 +407,17 @@ class DPVO:
         return tuple(self._dev(a[:e][k].astype(np.int64))
                      for a in (hs.ii, hs.jj, hs.kk))
 
+    def motionmag(self, i, j):
+        """Mean flow magnitude of the live edges from frame ``i`` into frame
+        ``j`` on the current poses (0.0 when no edge joins them): one host
+        read.  The engine's own decisions use ``flowmag_two`` on the
+        device instead."""
+        ii, jj, kk = self._motionmag_edges(i, j)
+        if ii.numel() == 0:
+            return 0.0
+        return float(kernels.flowmag_pair(self.ds.poses, self.ds.patches,
+                                          self.ds.intrinsics, ii, jj, kk))
+
     def _candidate(self):
         """The keyframe candidate's motion-magnitude edges, both directions
         (ii, jj, kk each), and its timestamp; None while it has no edges."""
@@ -398,10 +453,14 @@ class DPVO:
         while q and (self._kf_clock - q[0][3] + self._b_eff - 1
                      >= self.cfg.ASYNC_KEYFRAME_LAG):
             vec, event, tcands, _ = q.pop(0)
+            t_r = self._tick()
             if event is not None:
                 event.synchronize()
+            self._tock(t_r, "keyframe/result")
+            t_a = self._tick()
             for m, tcand in zip(vec.tolist(), tcands):
                 self._keyframe_apply(m, tcand)
+            self._tock(t_a, "keyframe/apply")
 
     def _keyframe_apply(self, m, tcand):
         """Merge the candidate frame (found by timestamp) if motion is
@@ -442,8 +501,10 @@ class DPVO:
         cfg, hs, ds = self.cfg, self.hs, self.ds
         if cfg.ASYNC_KEYFRAME:
             self._kf_clock += 1
+            t_l = self._tick()
             if len(self._mag_pending) >= self._b_eff:
                 self._flush_mags()
+            self._tock(t_l, "keyframe/launch")
             self._apply_overdue()
         else:
             cand = self._candidate()
@@ -455,6 +516,7 @@ class DPVO:
 
         # retire edges outside the removal window; under loop closure the
         # loop edges into the optimization window stay
+        t_rt = self._tick()
         e = hs.e_num
         to_remove = (hs.kk[:e] // self.M) < self.n - cfg.REMOVAL_WINDOW
         if cfg.LOOP_CLOSURE:
@@ -462,6 +524,7 @@ class DPVO:
                            & (hs.jj[:e] > self.n - cfg.OPTIMIZATION_WINDOW))
         self.remove_factors(to_remove, store=True)
         self._flush_edge_permute()
+        self._tock(t_rt, "keyframe/retire")
 
     def motion_probe(self):
         kk = torch.arange(self.m - self.M, self.m, device=self.device)
@@ -505,6 +568,7 @@ class DPVO:
         intr = self._dev(np.asarray(intrinsics, np.float32)) / self.RES
         kw = dict(M=self.M, pmem=self.pmem, mem=self.mem,
                   motion_damping=float(cfg.MOTION_DAMPING))
+        t_tr = self._tick()
         if self.test_centroids is None:
             kernels.track_frame_u8(
                 ds, self.patchifier, img, intr, self.n, fac,
@@ -518,6 +582,7 @@ class DPVO:
                 ds, self.patchifier, normalize_images(img), coords, intr,
                 self.n, fac, self.is_initialized, self.gen,
                 fixed_depth=self.test_fixed_depth, **kw)
+        self._tock(t_tr, "track_frame")
 
         hs.counter += 1
         if self.n > 0 and not self.is_initialized:
@@ -537,10 +602,12 @@ class DPVO:
                 self.append_factors(lkk, ljj)
 
         # forward + backward factors in one append
+        t_ap = self._tick()
         kf, jf = self._DPVO__edges_forw()
         kb, jb = self._DPVO__edges_back()
         self.append_factors(np.concatenate([kf, kb]),
                             np.concatenate([jf, jb]))
+        self._tock(t_ap, "append_factors")
 
         if self.n == 8 and not self.is_initialized:
             self.is_initialized = True
@@ -553,7 +620,9 @@ class DPVO:
                     and len(self._mag_pending) >= self._b_eff):
                 self._flush_mags()
             self.update()
+            t_kf = self._tick()
             self.keyframe()
+            self._tock(t_kf, "keyframe")
 
         if self.long_term_lc is not None:
             self.long_term_lc.attempt_loop_closure(self.n)

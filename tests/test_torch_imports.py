@@ -2,6 +2,7 @@
 (``bench_torch.py``, ``demo_torch.py``, ``train_torch.py``, the five
 ``evaluate_*_torch.py``, ``scripts/dev/corr_variants_torch.py``,
 ``scripts/build_redwood_pickle_torch.py``, ``scripts/multi_gpu_torch.py``),
+the dev benches ``scripts/dev/*_torch.py`` and ``benchmarks/*_torch.py``,
 the spawned ranks' ``tests/torch_ranks.py`` and ``chip_smoke.py`` import
 nothing of JAX, flax or the JAX package, and the
 smoke script refuses to run without a CUDA card or outside the
@@ -24,7 +25,13 @@ PORT_FILES = sorted((ROOT / "dpvo_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "build_redwood_pickle_torch.py",
     ROOT / "scripts" / "multi_gpu_torch.py", ROOT / "tests" / "torch_ranks.py",
     *(ROOT / f"evaluate_{name}_torch.py"
-      for name in ("tartan", "euroc", "kitti", "tum", "icl_nuim"))]
+      for name in ("tartan", "euroc", "kitti", "tum", "icl_nuim")),
+    *(ROOT / "scripts" / "dev" / f"{name}_torch.py"
+      for name in ("microbench", "frame_profile", "bench_profile",
+                   "bench_ablate", "update_net_profile", "corr_block_profile",
+                   "ba_bench", "train_bench", "roofline", "lc_match_bench")),
+    *(ROOT / "benchmarks" / f"{name}_torch.py"
+      for name in ("compare_scatter", "benchmark_dataloader"))]
 
 
 def _imported_modules(path):
@@ -68,7 +75,9 @@ def test_package_imports_without_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # the dev benches import their harness (scripts/dev) by name
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), str(ROOT / "scripts" / "dev")]))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=ROOT, timeout=300)
 

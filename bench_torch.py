@@ -27,7 +27,9 @@ engine's phase timers run over the windows (host dispatch time: no device
 synchronise at the phases' ends, as ``bench.py`` measures them;
 ``DPVO_TIMING=block`` fences each phase with one instead), and each
 regime logs ``timing_report()`` to stderr after its windows; the JSON line
-is the same.
+is the same.  The engine replays its update program as CUDA graphs, and
+each regime logs the buckets its updates ran at, each graph's capture ms
+and the graph pool's bytes to stderr.
 """
 from __future__ import annotations
 
@@ -97,7 +99,8 @@ class FrameFeed:
 
 def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                n_bench=40, min_windows=9, max_windows=24, profile_frames=0,
-               seed=0, timing=False, timing_block=False, **overrides):
+               seed=0, timing=False, timing_block=False, cuda_graphs=True,
+               **overrides):
     """One pinned-regime capture.  -> dict: ``fps`` (median of the 5 best
     windows), ``median_fps``, ``windows`` (frames/sec each), ``edges``
     (live edges at each window's end), ``edges_range`` (least and most
@@ -108,14 +111,19 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     frames).  With ``timing`` the engine's phase timers run over the
     windows (``timing_block``: each phase fenced by a device synchronise;
     off, the host's dispatch time) and ``timing`` holds their
-    ``timing_report()``, else None."""
+    ``timing_report()``, else None.  ``cuda_graphs`` is the engine's
+    (False: the update program runs eagerly on the card); ``graphs`` holds
+    the updates run at each edge bucket (``buckets``), the capture ms of
+    each graph key (``capture_ms``) and the graph pool's bytes
+    (``pool_bytes``, None without graphs)."""
     import torch
     from dpvo_tpu_torch.device import resolve_device
     from dpvo_tpu_torch.engine import DPVO
 
     dev = resolve_device(device)
     cfg = regime_config(regime, **overrides)
-    slam = DPVO(cfg, network=None, ht=ht, wd=wd, device=dev, seed=seed)
+    slam = DPVO(cfg, network=None, ht=ht, wd=wd, device=dev, seed=seed,
+                cuda_graphs=cuda_graphs)
     # random weights give arbitrary motion probes: force tracking
     slam.motion_probe = lambda: 100.0
     intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
@@ -180,6 +188,9 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     keyframes = slam.n
     poses, tstamps = slam.terminate()
     sync()
+    graphs = dict(buckets=dict(sorted(slam.buckets_seen.items())),
+                  capture_ms=dict(slam.graph_capture_ms),
+                  pool_bytes=slam.graph_pool_bytes())
     top = sorted(windows)[-5:]
     swin = sorted(windows)
     return dict(fps=top[len(top) // 2], median_fps=swin[len(swin) // 2],
@@ -187,7 +198,7 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                 edges_range=(min(per_frame), max(per_frame)),
                 keyframes=keyframes,
                 points=points, colors=colors, poses=poses, tstamps=tstamps,
-                profile=profile, timing=report)
+                profile=profile, timing=report, graphs=graphs)
 
 
 def bench_line(results):
@@ -215,11 +226,15 @@ def main(argv=None):
     timing = os.environ.get("DPVO_TIMING", "")
     results = {}
     for regime in (r.strip() for r in regimes.split(",")):
-        results[regime] = run_regime(regime, device=args.device,
-                                     timing=bool(timing),
-                                     timing_block=timing == "block")
-        log(f"[{regime}] live edges at the windows' ends: "
-            f"{results[regime]['edges']}")
+        r = results[regime] = run_regime(regime, device=args.device,
+                                         timing=bool(timing),
+                                         timing_block=timing == "block")
+        g = r["graphs"]
+        log(f"[{regime}] live edges at the windows' ends: {r['edges']}; "
+            f"updates per bucket {g['buckets']}; graphs "
+            f"{len(g['capture_ms'])}, capture ms "
+            f"{[round(v, 1) for v in g['capture_ms'].values()]}, pool bytes "
+            f"{g['pool_bytes']}")
     print(json.dumps(bench_line(results)))
     return 0
 

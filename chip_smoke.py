@@ -48,8 +48,9 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    regime (KEYFRAME_THRESH=0), then the retain regime at
    DPVO_CORR_VERSION 12 (the raw-feature path), with per-frame times, live
    edges, each kernel's launch count (every kernel of the drive's path >
-   0, the other correlation kernel 0), the box fit share at the last
-   update and finite poses;
+   0, the other correlation kernel 0), the box fit share at one eager
+   update on the drive's end state (after ``terminate()``) and finite
+   poses;
 5. loop closure (``LOOP_CLOSURE=True``, ``configs/default.yaml``'s
    setting): the fp32 engine on the card against the CPU engine on 45
    small frames (``REMOVAL_WINDOW=6``, ``GLOBAL_OPT_FREQ=10``, so global BA
@@ -61,9 +62,11 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    printed, which must propose loop edges, run ``ba_global``, launch K2, K3
    and K4 and end with finite poses (ms/frame, global BA ms per call and
    calls by solver, peak live and inactive edges, peak device memory, 3
-   profiled frames with global BA, K2 at the drive's last update on the
-   96000-row gmap ring); then one ``ba_global`` call at that drive's
-   largest shapes under ``torch.cuda.set_sync_debug_mode("error")``;
+   profiled frames with global BA, K2 at one eager update on the drive's
+   end state, on the 96000-row gmap ring, K3 and K4 at the drive's eager
+   calls with the most groups, K3 past 4104 live groups); then one
+   ``ba_global`` call at that drive's largest shapes under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 6. train (``train_torch.py``'s step, which runs no hand-written kernel:
    the phase fails if any launches): card against CPU in fp32 with TF32
    off (N=5, 64x96, M=4, 3 iterations, the same flax-like seeded weights
@@ -105,8 +108,25 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    default configuration (lagged keyframing), 30 warm frames and two
    40-frame windows each, then 5 profiled frames: ms/frame per window,
    live edges, the device idle share, launch counts, the box fit share at
-   the last update; the merge drive's TUM trajectory and PLY map are
-   written to a temporary directory and read back;
+   the last eager update (the last capture's warm-up); the merge drive's
+   TUM trajectory and PLY map are written to a temporary directory and
+   read back;
+9b. graphs (the update program replayed as a CUDA graph, which every
+   card engine of the other phases does too, one graph per static key
+   captured at first reach): (a) one replay against the eager program on
+   the same state at the lagged merge drive's bucket 14336 and the retain
+   drive's 49152 (TOL_GRAPH, and whether bitwise; each timed with a
+   synchronise); (b) warm lagged merge frames under
+   ``torch.cuda.set_sync_debug_mode("error")`` until one applies a merge,
+   the overdue batch's event wait bracketed on its own; (c) the bench
+   merge drive with graphs against the same drive run eagerly
+   (``DPVO(cuda_graphs=False)``): structure exact, poses within
+   AGREE_BF16; (d) merge and retain with and without graphs (the graphs
+   arm is phase 9's runs, whose phase timers are on): ms/frame,
+   update/step and update/meta dispatch, device idle, buckets visited,
+   capture ms per graph, the graph pool's bytes, launches; and K2, K3
+   and K4 at the merge drive's padded bucket (its last eager update
+   program, each capture's warm-up) against their plain versions;
 10. redwood (Redwood fine-tuning, ``configs/redwood_train.yaml``): a
    synthetic 72-frame 480x640 Redwood tree (JPEG images, uint16 mm depth
    PNGs, a column-major PoseGraph JSON, ``intrinsic.npy``) through the
@@ -157,7 +177,7 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    ``{"ok": true, "device": {...}}``.
 
 ``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
-eval, classic, bench, redwood, viz, sharded, tools)
+eval, classic, bench, graphs, redwood, viz, sharded, tools)
 runs those phases alone and prints no kernels line and no ``ok`` line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -443,6 +463,17 @@ def segment_inputs(E, D, n_groups, dev, gen):
     a = torch.randn((E, D), generator=gen, device=dev)
     b = torch.randn((E, D), generator=gen, device=dev)
     return a, b, gid
+
+
+def summed_groups(gid, g_cap, live=None):
+    """The live groups a segment-sum call adds up: the dense ranks below
+    the table's rows of its first ``live`` rows (all rows without it; a
+    padded bucket's masked rows sort last: past K3's table, in K4 a group
+    each)."""
+    from dpvo_tpu_torch.ops import agg_cuda
+    rows = gid if live is None else gid[:int(live)]
+    kept = rows[rows < agg_cuda.padded_groups(g_cap)]
+    return int(kept.max()) + 1 if len(kept) else 0
 
 
 def check_segment_sums(vals, gid, g_cap):
@@ -1014,30 +1045,63 @@ def phase_agreement_bf16(dev):
 def last_calls():
     """Keep, passing every call through unchanged: the coords and rings of
     the last corr_enc / corr_fused call the engine makes (``box["coords"]``),
-    the arguments of the last corr_enc call (``box["corr_enc"]``), and those
+    the arguments of the last corr_enc call (``box["corr_enc"]``), those
     of the segment_softmax_sums and segment_sums calls with the most groups
     (``box[name]``): on a tie K3's first (an update's patch groups come
-    before its frame-pair groups) and K4's last."""
+    before its frame-pair groups) and K4's last, and those of the first K3
+    call with the most rows (``box["widest_softmax"]``); ``box["live"]``
+    maps each kept K3/K4 argument tuple's ``id`` to the live row count of
+    the update program that made the call (a device scalar; None outside
+    one: all rows live).  Calls inside a CUDA graph capture are not kept
+    (their tensors live in the engine's graph pool, freed with the
+    engine), and a replay passes no wrapper: under graphs the box holds
+    the update program's eager runs, the warm-up of each capture on the
+    state it is captured from, and ``end_state_update``'s run."""
+    import torch
+    from dpvo_tpu_torch.engine import kernels
     from dpvo_tpu_torch.ops import agg_cuda, corr_cuda
     box = dict(coords=None, corr_enc=None, segment_softmax_sums=None,
-               segment_sums=None)
+               segment_sums=None, widest_softmax=None, live={})
     old = (corr_cuda.corr_enc, corr_cuda.corr_fused,
-           agg_cuda.segment_softmax_sums, agg_cuda.segment_sums)
+           agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
+           kernels.update_step_dev)
+    running = [None]
+
+    def eager():
+        return not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing())
+
+    def update_dev(ds, update_mod, bucket, e_num, *rest, **kw):
+        if eager():
+            running[0] = (e_num.clone() if torch.is_tensor(e_num)
+                          else e_num)
+        try:
+            return old[4](ds, update_mod, bucket, e_num, *rest, **kw)
+        finally:
+            running[0] = None
 
     def enc(*args):
-        box["coords"] = (args[5], args[3], args[4])
-        box["corr_enc"] = args
+        if eager():
+            box["coords"] = (args[5], args[3], args[4])
+            box["corr_enc"] = args
         return old[0](*args)
 
     def fused(g_pre, f1, f2, coords, *rest):
-        box["coords"] = (coords, f1, f2)
+        if eager():
+            box["coords"] = (coords, f1, f2)
         return old[1](g_pre, f1, f2, coords, *rest)
 
     def most_groups(name, fn, later):
         def call(*args):                 # g_cap is the last argument
-            if (box[name] is None or args[-1] > box[name][-1]
-                    or later and args[-1] == box[name][-1]):
+            if eager() and (box[name] is None or args[-1] > box[name][-1]
+                            or later and args[-1] == box[name][-1]):
                 box[name] = args
+                box["live"][id(args)] = running[0]
+            if name == "segment_softmax_sums" and eager() and (
+                    box["widest_softmax"] is None
+                    or len(args[3]) > len(box["widest_softmax"][3])):
+                box["widest_softmax"] = args
+                box["live"][id(args)] = running[0]
             return fn(*args)
         return call
 
@@ -1045,11 +1109,13 @@ def last_calls():
     agg_cuda.segment_softmax_sums = most_groups("segment_softmax_sums",
                                                 old[2], later=False)
     agg_cuda.segment_sums = most_groups("segment_sums", old[3], later=True)
+    kernels.update_step_dev = update_dev
     try:
         yield box
     finally:
         (corr_cuda.corr_enc, corr_cuda.corr_fused,
-         agg_cuda.segment_softmax_sums, agg_cuda.segment_sums) = old
+         agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
+         kernels.update_step_dev) = old
 
 def device_profile(prof, wall_ms, n_frames, top=8, unit="frame"):
     """Device busy time (the union of the CUDA kernel intervals the
@@ -1147,8 +1213,9 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
             profile = device_profile(prof, wall_ms, n_profile)
         poses, tstamps = slam.terminate()
         sync()
+        launches = dict(_cuda.launches)
+        end_state_update(slam)
     fits = fit_share(*last["coords"])
-    launches = dict(_cuda.launches)
     steady = sorted(ms[n_warm:])
     out = dict(regime=name, frames=n_frames, keyframes=slam.n,
                median_ms=steady[len(steady) // 2], max_ms=steady[-1],
@@ -1160,8 +1227,8 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
         f"live edges {edges[-1]} (max {max(edges)}), keyframes {slam.n}, "
         f"launches {launches}")
     log(f"[profile] {name} frames {n_timed}..{n_frames - 1}: {profile}")
-    log(f"[engine] {name} last update ({last['coords'][0].shape[0]} edges): "
-        f"{fits}")
+    log(f"[engine] {name} update at the drive's end (one eager run after "
+        f"terminate(), {last['coords'][0].shape[0]} edges): {fits}")
     expect, absent = PATH_KERNELS[version]
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
           and len(tstamps) == n_frames
@@ -1179,23 +1246,15 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     configuration (lagged keyframing), through its run_regime, with the
     windows capped; launch counts zeroed before each regime and read after.
     The merge drive's trajectory and map are written as TUM and PLY files
-    into a temporary directory and read back.  -> {regime: result}."""
-    import torch
-    import bench_torch
-    from dpvo_tpu_torch.ops import _cuda
+    into a temporary directory and read back.  The phase timers run (host
+    dispatch), for the graphs phase.  -> {regime: result}."""
     from dpvo_tpu_torch.utils.plot_utils import (save_ply,
                                                  save_trajectory_tum_format)
     expect, absent = PATH_KERNELS[13]
     out = {}
     for regime in ("merge", "retain"):
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        with last_calls() as last:
-            r = bench_torch.run_regime(regime, device=dev,
-                                       min_windows=n_windows,
-                                       max_windows=n_windows,
-                                       profile_frames=n_profile)
-        r["launches"] = dict(_cuda.launches)
+        r = graph_run(dev, regime, True, n_windows, n_profile)
+        last = r["last"]
         ms = [1e3 / w for w in r["windows"]]
         profile = device_profile(*r["profile"])
         n = len(r["poses"])
@@ -1207,8 +1266,9 @@ def phase_bench(dev, n_windows=2, n_profile=5):
             f"over their frames), keyframes {r['keyframes']}, launches "
             f"{r['launches']}")
         log(f"[profile] bench {regime} last {n_profile} frames: {profile}")
-        log(f"[bench] {regime} last update ({last['coords'][0].shape[0]} "
-            f"edges): " + fit_share(*last["coords"]))
+        log(f"[bench] {regime} last eager update (the last capture's "
+            f"warm-up, {last['coords'][0].shape[0]} edges): "
+            + fit_share(*last["coords"]))
         ok = (np.isfinite(r["poses"]).all() and len(r["tstamps"]) == n
               and all(r["launches"].get(k, 0) > 0 for k in expect)
               and not any(r["launches"].get(k, 0) for k in absent))
@@ -1236,6 +1296,309 @@ def phase_bench(dev, n_windows=2, n_profile=5):
     return out
 
 
+# --- phase 9b: the update program as CUDA graphs ----------------------------
+
+# replay against eager on one state: the same kernels in the same order, so
+# bitwise is expected; the limit (of max|replay - eager| / max(max|eager|,
+# 1)) leaves room for a library that picks another algorithm in a capture
+TOL_GRAPH = 1e-5
+GRAPH_CHECKS = {"merge": 14336, "retain": 49152}   # regime -> bucket
+SYNC_WARM = 8      # frames with no new capture before the sync check
+
+
+def graph_engine(dev, regime, cuda_graphs=True):
+    """bench_torch's engine for ``regime`` (default config, lagged
+    keyframing, seeded random weights, motion probe forced) with its frame
+    feed: -> (slam, feed, intrinsics)."""
+    import bench_torch
+    from dpvo_tpu_torch.engine import DPVO
+    slam = DPVO(bench_torch.regime_config(regime), network=None, ht=480,
+                wd=640, device=dev, seed=0, cuda_graphs=cuda_graphs)
+    slam.motion_probe = lambda: 100.0
+    return slam, bench_torch.FrameFeed(480, 640, dev), np.array(
+        [320.0, 320.0, 320.0, 240.0])
+
+
+UPDATE_WRITES = ("net", "target", "weight", "poses", "patches")
+
+
+def stage_live_update(slam):
+    """Stage a local-BA update of the engine's live state as ``update()``
+    stages one (with the candidate's magnitude where decisions lag), and
+    save what the update program writes: -> (bucket, has_mm, k_cap,
+    restore)."""
+    ds, hs, cfg = slam.ds, slam.hs, slam.cfg
+    slam._flush_edge_permute()
+    blob, _ = slam._mm_blob()
+    k_cap = slam._update_k_cap()
+    slam._stage_update(hs.e_num, max(slam.n - cfg.OPTIMIZATION_WINDOW, 1),
+                       slam.n, blob)
+    saved = [getattr(ds, k).clone() for k in UPDATE_WRITES]
+
+    def restore():
+        for k, v in zip(UPDATE_WRITES, saved):
+            getattr(ds, k).copy_(v)
+    return slam._edge_bucket(), blob is not None, k_cap, restore
+
+
+def end_state_update(slam):
+    """One eager run of the update program on the engine's state at the
+    drive's end, the state put back after.  Under graphs the drive's own
+    updates replay and pass no kernel wrapper, so inside ``last_calls``
+    this run is the drive's last update."""
+    import torch
+    bucket, has_mm, k_cap, restore = stage_live_update(slam)
+    slam._update_program(bucket, True, has_mm, k_cap)()
+    restore()
+    torch.cuda.synchronize()
+
+
+def replay_against_eager(slam, regime, bucket, reps=5):
+    """One graph replay of the update program against the eager program on
+    the same state (the engine's live state at ``bucket``, inputs staged as
+    ``update()`` stages them), then each timed ``reps`` times with a
+    synchronise; the state is put back after."""
+    import torch
+    ds, hs = slam.ds, slam.hs
+    _, _, k_cap, restore = stage_live_update(slam)
+    names = UPDATE_WRITES
+
+    def run(graph):
+        if graph:
+            return slam._call_update_step(bucket, True, True, k_cap)
+        return slam._update_program(bucket, True, True, k_cap)()
+
+    outs = {}
+    for graph in (True, False):
+        restore()
+        mag = run(graph)
+        torch.cuda.synchronize()
+        outs[graph] = [getattr(ds, k)[:bucket].clone() if k in names[:3]
+                       else getattr(ds, k).clone() for k in names] + [
+            mag.clone()]
+    errs = {}
+    for k, a, b in zip(names + ("magnitude",), outs[True], outs[False]):
+        scale = max(b.abs().max().item(), 1.0)
+        errs[k] = (a - b).abs().max().item() / scale
+    bitwise = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    ms = {}
+    for graph in (True, False):
+        runs = []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(graph)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[graph] = sorted(runs)[reps // 2]
+    restore()
+    torch.cuda.synchronize()
+    ok = max(errs.values()) <= TOL_GRAPH and bool(torch.isfinite(
+        outs[True][3]).all())
+    capture = [v for k, v in slam.graph_capture_ms.items()
+               if k[:4] == (bucket, True, True, k_cap)]
+    log(f"[graphs] {regime} replay vs eager at bucket {bucket} "
+        f"({hs.e_num} live edges, k_cap {k_cap}): max error / max|eager| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_GRAPH}; {'bitwise' if bitwise else 'not bitwise'}); "
+        f"update with a synchronise: replay {ms[True]:.2f} ms, eager "
+        f"{ms[False]:.2f} ms (median of {reps}); capture (warm-up and "
+        f"capture, host) {capture[0] if capture else float('nan'):.1f} ms "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"graphs: replay disagrees with the eager update "
+                         f"program ({regime}, bucket {bucket})")
+    return dict(errs=errs, bitwise=bitwise, ms=ms)
+
+
+def drive_to_bucket(slam, feed, intr, bucket, t=0, max_frames=80):
+    """Frames until the live edges after a frame fall in ``bucket``: -> the
+    next frame index."""
+    while t < max_frames:
+        slam(t, feed.get(t), intr)
+        t += 1
+        if slam.is_initialized and slam._edge_bucket() == bucket:
+            return t
+    raise SystemExit(f"graphs: the drive never reached bucket {bucket} in "
+                     f"{max_frames} frames")
+
+
+def check_frame_syncs(slam, feed, intr, t, max_frames=12):
+    """Warm frames of the lagged merge drive under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
+    raises), until one has applied a merge; the overdue batch's event wait,
+    a designed wait, is bracketed on its own (the mode is off for it alone)
+    and counted.  First the drive runs until SYNC_WARM frames in a row
+    captured no new graph.  -> the next frame index."""
+    import torch
+    quiet = 0
+    while quiet < SYNC_WARM:
+        n_graphs = len(slam._graphs)
+        slam(t, feed.get(t), intr)
+        t += 1
+        quiet = quiet + 1 if len(slam._graphs) == n_graphs else 0
+    orig = torch.cuda.Event.synchronize
+    waits = [0]
+
+    def bracketed(event):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig(event)
+        finally:
+            waits[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+
+    checked, merged = 0, 0
+    while checked < max_frames and not merged:
+        img = feed.get(t)          # the feed's own buffer wait stays out
+        n_graphs, n_delta = len(slam._graphs), len(slam.hs.delta)
+        torch.cuda.synchronize()
+        torch.cuda.Event.synchronize = bracketed
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            slam(t, img, intr)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.Event.synchronize = orig
+        torch.cuda.synchronize()
+        t += 1
+        if len(slam._graphs) != n_graphs:
+            raise SystemExit("graphs: a checked frame captured a new graph")
+        checked += 1
+        merged = len(slam.hs.delta) - n_delta
+    log(f"[graphs] merge: {checked} warm frame(s) (track_frame, "
+        f"append_factors, update, keyframe) under sync debug mode "
+        f"\"error\": no host synchronisation; {waits[0]} overdue-batch event "
+        f"wait(s) bracketed; {merged} merge(s) applied in the last "
+        f"{'OK' if merged else 'FAIL'}")
+    if not merged:
+        raise SystemExit("graphs: no checked frame applied a merge")
+    return t
+
+
+def check_padded_kernels(last, regime):
+    """K2, K3 and K4 at the drive's padded buckets (``last_calls``: the
+    eager warm-ups of its captures; bucket rows with the rows past the live
+    count masked: in K3 ranked past its table, in K4 a group each), each
+    against its plain
+    version and timed on a graph: K2 at the last warm-up, K3 at the
+    widest, K4 at its warm-up call with the most groups."""
+    import torch
+    args = last["corr_enc"]
+    res = {}
+    check_enc(res, f"at the {regime} drive's padded bucket", args)
+    from dpvo_tpu_torch.ops import agg_cuda
+    gate, val, shift, gid, g_cap = last["widest_softmax"]
+    err3, ok3 = check_softmax_sums(gate, val, shift, gid, g_cap)
+    ms3 = graph_ms(lambda: agg_cuda.segment_softmax_sums(gate, val, shift,
+                                                         gid, g_cap))
+    live3 = last["live"][id(last["widest_softmax"])]
+    vals, gid4, g_cap4 = last["segment_sums"]
+    live4 = last["live"][id(last["segment_sums"])]
+    err4, err_ord, ok4 = check_segment_sums(vals, gid4, g_cap4)
+    ms4 = graph_ms(lambda: agg_cuda.segment_sums(vals, gid4, g_cap4))
+    err2 = next(iter(res["corr_enc"].values()))["max_abs_err"]
+    log(f"[graphs] {regime} padded kernels (the captures' eager "
+        f"warm-ups): K2 {args[5].shape[0]} rows at the last, max_abs_err "
+        f"{err2:.3e}; K3 at the widest, E={len(gid)} ({int(live3)} live) "
+        f"{summed_groups(gid, g_cap, live3)} live groups, the masked rows "
+        f"past the table, max_abs_err {err3:.3e}, {ms3:.4f} ms; K4 at the "
+        f"most groups, E={len(gid4)} ({int(live4)} live) "
+        f"{summed_groups(gid4, g_cap4, live4)} live groups, the masked rows "
+        f"a group each, max_abs_err {err4:.3e}, row-order {err_ord:.3e} "
+        f"(must be 0), {ms4:.4f} ms {'OK' if ok3 and ok4 else 'FAIL'}")
+    if not (ok3 and ok4):
+        raise SystemExit(f"graphs: K3/K4 disagree with their plain versions "
+                         f"at the {regime} drive's padded bucket")
+    torch.cuda.synchronize()
+
+
+def graph_run(dev, regime, cuda_graphs, n_windows=2, n_profile=5):
+    """bench_torch.run_regime with the phase timers on (host dispatch),
+    launch counts zeroed before and read after."""
+    import torch
+    import bench_torch
+    from dpvo_tpu_torch.ops import _cuda
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with last_calls() as last:
+        r = bench_torch.run_regime(regime, device=dev, min_windows=n_windows,
+                                   max_windows=n_windows,
+                                   profile_frames=n_profile, timing=True,
+                                   cuda_graphs=cuda_graphs)
+    r["launches"] = dict(_cuda.launches)
+    r["last"] = last
+    return r
+
+
+def report_run(regime, r):
+    g = r["graphs"]
+    arm = "graphs" if g["pool_bytes"] is not None else "eager"
+    ms = [1e3 / w for w in r["windows"]]
+    step = r["timing"].get("update/step", (float("nan"), 0))
+    pool = g["pool_bytes"]
+    log(f"[graphs] {regime} {arm}: ms/frame per 40-frame window "
+        + ", ".join(f"{m:.2f}" for m in ms)
+        + f" (fps {r['fps']:.2f}); update/step dispatch {step[0]:.2f} ms "
+        f"x{step[1]}; update/meta "
+        f"{r['timing'].get('update/meta', (float('nan'), 0))[0]:.3f} ms; "
+        f"buckets visited {g['buckets']}; graphs {len(g['capture_ms'])}, "
+        f"capture ms " + ", ".join(f"{k[0]}{'' if k[1] else ' noBA'}"
+                                   f"{'' if k[2] else ' noMM'} k{k[3]}: "
+                                   f"{v:.1f}" for k, v in
+                                   g["capture_ms"].items())
+        + f"; pool {'none' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
+        f"launches {r['launches']}")
+    log(f"[profile] graphs {regime} {arm} last 5 frames: "
+        + device_profile(*r["profile"]))
+
+
+def phase_graphs(dev, bench=None):
+    """The update program as CUDA graphs: (a) one replay against the eager
+    program on the same state at the merge and retain buckets; (b) warm
+    lagged merge frames under sync debug mode "error"; (c) the bf16 lagged
+    merge drive with graphs against the same drive run eagerly (structure
+    exact, poses within AGREE_BF16); (d) merge and retain with and without
+    graphs (``bench`` reuses phase_bench's runs for the graphs arm): ms/frame,
+    update/step dispatch, device idle, buckets, capture ms, pool bytes;
+    and K2/K3/K4 against their plain versions at the merge drive's padded
+    bucket."""
+    t_phase = time.perf_counter()
+    for regime, bucket in GRAPH_CHECKS.items():
+        slam, feed, intr = graph_engine(dev, regime)
+        t = drive_to_bucket(slam, feed, intr, bucket)
+        replay_against_eager(slam, regime, bucket)
+        if regime == "merge":
+            check_frame_syncs(slam, feed, intr, t)
+        del slam, feed
+    runs = {}
+    for regime in ("merge", "retain"):
+        with_g = (bench or {}).get(regime) or graph_run(dev, regime, True)
+        eager = graph_run(dev, regime, False)
+        report_run(regime, with_g)
+        report_run(regime, eager)
+        runs[regime] = (with_g, eager)
+    check_padded_kernels(runs["merge"][0]["last"], "merge")
+    g, e = runs["merge"]
+    err_t, err_q = pose_errors(g["poses"], e["poses"])
+    atol_t, atol_q = AGREE_BF16
+    same = (g["keyframes"], g["edges"]) == (e["keyframes"], e["edges"])
+    ok = (same and g["poses"].shape == e["poses"].shape
+          and np.isfinite(g["poses"]).all() and err_t <= atol_t
+          and err_q <= atol_q)
+    log(f"[graphs] bf16 lagged merge drive, graphs against eager: "
+        f"{len(g['poses'])} frames, keyframes {g['keyframes']} / "
+        f"{e['keyframes']}, live edges at the windows' ends {g['edges']} / "
+        f"{e['edges']}; max|dt|={err_t:.3e} (tol {atol_t}) "
+        f"1-min|q.q'|={err_q:.3e} (tol {atol_q}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("graphs: the graphed merge drive disagrees with the "
+                         "eager one")
+    log(f"[graphs] phase {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 # --- phase 5: loop closure ------------------------------------------------
 
 # the small loop-closure drive (tests/test_torch_loop_closure.py's): frame
@@ -1246,7 +1609,11 @@ LC_SMALL = dict(REMOVAL_WINDOW=6, LOOP_CLOSURE=True, GLOBAL_OPT_FREQ=10,
 LC_SMALL_FRAMES = 45
 # the full-width drive: configs/default.yaml with these overrides.  The
 # retain regime keeps every frame, so keyframes reach REMOVAL_WINDOW + 30
-# = 52 and proposals land at 35, 50 and 65; it retires about 2400 edges a
+# = 52 and proposals land at 35, 50, 65 and 80 (and again at terminate();
+# the last rounds' loop edges reach back far enough that an update's
+# patch groups pass phase 2's 4104: at 72 frames that rested on one
+# terminate() round, and a change of rounding in the update moved the
+# proposals enough to miss it); it retires about 2400 edges a
 # frame, which the default inactive store (16384 rows) holds for 7 frames.
 # The edge table holds the retain regime's 45312 live edges and the loop
 # edges.  Random weights give no valid flow test at the default
@@ -1254,7 +1621,7 @@ LC_SMALL_FRAMES = 45
 LC_FULL = dict(KEYFRAME_THRESH=0.0, BUFFER_SIZE=128,
                EDGE_CAPACITY_INAC=1 << 18, EDGE_CAPACITY=1 << 17,
                BACKEND_THRESH=1e9)
-LC_FULL_FRAMES = 72
+LC_FULL_FRAMES = 80
 LC_PROFILE = (64, 67)    # frames with global BA (after the proposal at 65)
 
 
@@ -1396,7 +1763,8 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
             peak_inac = max(peak_inac, slam.hs.n_inac)
         poses, tstamps = slam.terminate()
         torch.cuda.synchronize()
-    launches = dict(_cuda.launches)
+        launches = dict(_cuda.launches)
+        end_state_update(slam)
     mem = torch.cuda.max_memory_allocated() / 2**30
     steady = sorted(ms)
     plain = sorted(m for m, g in zip(ms, with_global) if not g)
@@ -1421,6 +1789,12 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
         + f"at keyframe counts {np.nonzero(slam.ran_global_ba)[0].tolist()};"
         f" peak live edges {peak_e}, peak inactive edges {peak_inac}; "
         f"max_memory_allocated {mem:.2f} GiB; launches {launches}")
+    keys = sorted(slam.graph_capture_ms)
+    pool = slam.graph_pool_bytes()
+    log(f"[lc] full drive's update graphs: {len(keys)} captured (bucket, "
+        f"local BA, magnitude, k_cap): {[k[:4] for k in keys]}; capture ms "
+        f"{sum(slam.graph_capture_ms.values()):.1f} in all; pool "
+        f"{(pool or 0) / 2**20:.1f} MiB")
     log(f"[profile] lc full drive frames {profiled[0]}..{profiled[-1]} "
         f"(synchronised each frame): {profile}")
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
@@ -1438,34 +1812,40 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
 
 
 def check_lc_kernels(last):
-    """K2 at the full drive's last update (its 1000-frame gmap ring), and
-    K3 and K4 at the drive's calls with the most groups (``last_calls``),
-    each against its plain version; K3 must see more patch groups than
-    phase 2's 4104."""
+    """K2 at the full drive's end state (``end_state_update``, its
+    1000-frame gmap ring), and K3 and K4 at the drive's eager calls with
+    the most groups (``last_calls``: the captures' warm-ups and the end
+    state's run), each against its plain version; K3 must see more live
+    patch groups than phase 2's 4104."""
     import torch
     args = last["corr_enc"]
     k2 = {}
-    check_enc(k2, "at the lc drive's last update", args)
+    check_enc(k2, "at the lc drive's end state", args)
     r = next(iter(k2["corr_enc"].values()))
-    log(f"[lc] K2 at the drive's last update: {args[5].shape[0]} edges, "
+    log(f"[lc] K2 at the drive's end state (one eager update after "
+        f"terminate()): {args[5].shape[0]} edges, "
         f"gmap ring {args[0].shape[0]} rows: max_abs_err "
         f"{r['max_abs_err']:.3e} (tol {TOL_K2}*max|plain|), {r['ms']:.4f} "
         f"ms (bound {r['bound_ms']:.4f}, {r['bound_by']})")
     gate, val, shift, gid, g_cap = last["segment_softmax_sums"]
-    groups = int(gid.max()) + 1
+    groups = summed_groups(gid, g_cap,
+                           last["live"][id(last["segment_softmax_sums"])])
     err, ok = check_softmax_sums(gate, val, shift, gid, g_cap)
     ok = ok and groups > 4104
-    log(f"[lc] K3 at the drive's widest update: E={len(gid)}, {groups} "
-        f"groups, g_cap={g_cap}: max_abs_err={err:.3e} tol=rtol "
+    log(f"[lc] K3 at the drive's eager call with the most groups (the "
+        f"captures' warm-ups and the end state's run): E={len(gid)}, "
+        f"{groups} live groups, g_cap={g_cap}: max_abs_err={err:.3e} tol=rtol "
         f"{TOL_SEG[0]} atol {TOL_SEG[1]} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("segment_softmax_sums disagrees with its plain "
                          "version on the loop-closure drive, or saw no more "
                          "than 4104 groups")
     vals, gid, g_cap = last["segment_sums"]
+    live = last["live"][id(last["segment_sums"])]
     err, err_ord, ok = check_segment_sums(vals, gid, g_cap)
-    log(f"[lc] K4 at the drive's last widest call: E={len(gid)}, "
-        f"{int(gid.max()) + 1} groups, g_cap={g_cap}: max_abs_err="
+    log(f"[lc] K4 at the drive's last eager call with the most groups: "
+        f"E={len(gid)}, {summed_groups(gid, g_cap, live)} live groups, "
+        f"g_cap={g_cap}: max_abs_err="
         f"{err:.3e} tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]}; against the "
         f"row-order reference {err_ord:.3e} (must be 0) "
         f"{'OK' if ok else 'FAIL'}")
@@ -3327,8 +3707,8 @@ def main(argv):
         return 1
     from dpvo_tpu_torch.ops import _cuda
     phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
-              "eval", "classic", "bench", "redwood", "viz", "sharded",
-              "tools")
+              "eval", "classic", "bench", "graphs", "redwood", "viz",
+              "sharded", "tools")
     only = None
     if "--only" in argv:
         only = set(argv[argv.index("--only") + 1].split(","))
@@ -3383,6 +3763,8 @@ def main(argv):
         phase_classic(dev)
     if run("bench"):
         bench = phase_bench(dev)
+    if run("graphs"):
+        phase_graphs(dev, bench if run("bench") else None)
     if run("redwood"):
         phase_redwood(dev)
     if run("viz"):

@@ -50,7 +50,9 @@
 // agreement with the CPU engine.
 //
 // Rows past E are skipped. Every row below E is computed as given: the
-// engine runs at its live edge count, so all rows are live. Non-finite
+// engine runs at an edge bucket, whose rows past the live count carry
+// patch 0, ring slot 0 and finite coordinates, and masks their outputs
+// after the update (engine/kernels.py:update_step_dev). Non-finite
 // coordinates are clamped in float before the int conversion, so they read
 // a window inside the padded map (never out of bounds); their fractional
 // part is NaN, and so is their output row.

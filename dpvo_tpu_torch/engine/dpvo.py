@@ -10,6 +10,15 @@ Counterpart of ``dpvo_tpu/engine/dpvo.py``, same public API::
 The host owns the edge bookkeeping (numpy); the device programs of
 ``engine.kernels`` update fixed-capacity device tensors in place.
 
+Each update is one fixed-shape program (``kernels.update_step_dev``) at a
+bucket of the JAX engine's ladder (``_bucket_for``), its inputs (the live
+count, the BA window and the keyframe candidate's packed edges) sent by
+one copy into ``DeviceState.update_in``; a steady frame never waits on the
+card but for the overdue batch of lagged decisions.  On the card the
+program replays as a CUDA graph, one per static key, captured the first
+time the key is reached; ``cuda_graphs=False`` runs it eagerly, as the CPU
+always does.
+
 Keyframe decisions come in two timings:
 
 - ``ASYNC_KEYFRAME=False`` (the reference's): each frame computes its
@@ -67,16 +76,16 @@ from ..device import resolve_device
 from ..models.update import Update
 from ..models.vonet import Patchifier, normalize_images
 from ..loop_closure.proximity import propose_loop_edges
-from ..ops import ba, lie
+from ..ops import _cuda, ba, corr_cuda, lie
 from ..utils.checkpoint import load_network
 from . import kernels
-from .state import allocate, allocate_host
+from .state import MM_CAP, UPDATE_SCALARS, allocate, allocate_host
 
 
 class DPVO:
     def __init__(self, cfg: VOConfig, network=None, ht: int = 480,
                  wd: int = 640, viz: bool = False, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         if cfg.CLASSIC_LOOP_CLOSURE:
             # the one check: without it the import fails in a worker
             # process or at the first triangulation, long after this
@@ -128,6 +137,15 @@ class DPVO:
             max((cfg.REMOVAL_WINDOW + 4) * self.M, 256)))
 
         self._pending_perm = None
+        # the update program on the card: one CUDA graph per static key
+        # (bucket, run_ba, has_mm, k_cap, correlation version), captured
+        # the first time the key is reached; cuda_graphs=False runs it
+        # eagerly (on the CPU it always runs eagerly)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self.graph_capture_ms: dict = {}
+        self.buckets_seen: dict = {}      # bucket -> updates run at it
         # lagged keyframe decisions (ASYNC_KEYFRAME): device magnitudes
         # with their candidate timestamps, then flushed batches
         # (host vector, copy event, timestamps, kf_clock at the flush)
@@ -228,7 +246,14 @@ class DPVO:
                                    self.ds.intrinsics, ix)
 
     def _dev(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the device with no synchronisation: on the card
+        a pinned copy sent with ``non_blocking``.  The pinned block comes
+        from PyTorch's caching host allocator, which gives it out again only
+        after the copy that read it has run."""
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # --- edge bookkeeping (host) ------------------------------------------
 
@@ -317,7 +342,41 @@ class DPVO:
         jj = np.tile(jrange, len(kk0))
         return kk, jj
 
-    # --- core steps --------------------------------------------------------
+    # --- the bucket ladder (the JAX engine's) ------------------------------
+
+    def _bucket_for(self, e):
+        """Bucket an edge count to a ladder of static sizes: {1, 1.5}*2^k
+        below 16384, quarter steps {1, 1.25, 1.5, 1.75}*2^k at or above
+        (padding waste <= 12.5% where a wasted row costs real per-edge
+        compute); BUCKET_FLOOR truncates the ladder's small end, so early
+        frames pad up to it.  Capped at the edge capacity."""
+        e = max(e, 1024, min(getattr(self.cfg, "BUCKET_FLOOR", 1024),
+                             self.E_cap))
+        p2 = 1 << math.ceil(math.log2(e))
+        if p2 >= 16384:
+            for m in (4, 5, 6, 7):
+                c = m * (p2 // 8)
+                if c >= e:
+                    p2 = c
+                    break
+        elif 3 * (p2 // 4) >= e and (3 * (p2 // 4)) % 1024 == 0:
+            p2 = 3 * (p2 // 4)
+        return min(p2, self.E_cap)
+
+    def _bucket_ladder(self):
+        """All values ``_bucket_for`` can return, ascending."""
+        vals = set()
+        e = 1
+        while e <= self.E_cap:
+            vals.add(self._bucket_for(e))
+            e += 256
+        vals.add(self._bucket_for(self.E_cap))
+        return sorted(vals)
+
+    def _edge_bucket(self):
+        return self._bucket_for(self.hs.e_num)
+
+    # --- the update program ------------------------------------------------
 
     def update(self):
         cfg, hs = self.cfg, self.hs
@@ -329,28 +388,114 @@ class DPVO:
         run_global = (cfg.LOOP_CLOSURE and not self.ran_global_ba[self.n]
                       and (hs.ii[:hs.e_num]
                            < self.n - cfg.REMOVAL_WINDOW - 1).any())
-        t0 = self.n - cfg.OPTIMIZATION_WINDOW if self.is_initialized else 1
+        if run_global:
+            t0 = t1 = 0              # unused: no local BA in this update
+        else:
+            t0 = max(self.n - cfg.OPTIMIZATION_WINDOW
+                     if self.is_initialized else 1, 1)
+            t1 = self.n
         t_meta = self._tick()
-        cand = self._candidate() if cfg.ASYNC_KEYFRAME else None
+        bucket = self._edge_bucket()
+        blob, tcand = self._mm_blob()
         k_cap = self._update_k_cap()
+        self._stage_update(hs.e_num, t0, t1, blob)
         self._tock(t_meta, "update/meta")
         # as in the JAX engine, update/step times the local-BA branch only
         t_up = self._tick() if not run_global else 0.0
-        kernels.update_step(
-            self.ds, self.update_mod, hs.e_num, max(t0, 1), self.n,
-            M=self.M, pmem=self.pmem, mem=self.mem, n_cap=self.n_cap,
-            k_cap=k_cap, iterations=2, run_ba=not run_global)
-        if cand is not None:
+        mag = self._call_update_step(bucket, not run_global,
+                                     blob is not None, k_cap)
+        if tcand is not None:
             # the candidate's magnitude on the poses of this update step
-            # (after local BA, or before global BA), queued
-            a, b, tcand = cand
-            self._mag_pending.append((kernels.flowmag_two(
-                self.ds.poses, self.ds.patches, self.ds.intrinsics, a, b),
-                tcand))
+            # (after local BA, or before global BA), queued; a graph's
+            # output is overwritten by its next replay
+            self._mag_pending.append((mag.clone(), tcand))
         if run_global:
             self._run_global_ba()
         else:
             self._tock(t_up, "update/step")
+
+    def _stage_update(self, e_num, t0, t1, blob):
+        """Write the update's inputs (``DeviceState.update_in``) with one
+        copy: on the card from a pinned block, ``non_blocking``."""
+        host = np.zeros(self.ds.update_in.shape[0], np.int32)
+        host[:UPDATE_SCALARS] = (e_num, t0, t1)
+        if blob is not None:
+            host[UPDATE_SCALARS:] = blob
+        src = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self.ds.update_in.copy_(src, non_blocking=True)
+
+    def _update_program(self, bucket, run_ba, has_mm, k_cap):
+        """The update as a function of the device state alone: reads
+        ``update_in``, writes the state, returns the magnitude or None."""
+        ds = self.ds
+        e_num, t0, t1 = ds.update_in[:UPDATE_SCALARS]
+        blob = ds.update_in[UPDATE_SCALARS:]
+
+        @torch.no_grad()
+        def program():
+            return kernels.update_step_dev(
+                ds, self.update_mod, bucket, e_num, t0, t1, blob, M=self.M,
+                pmem=self.pmem, mem=self.mem, n_cap=self.n_cap, k_cap=k_cap,
+                iterations=2, run_ba=run_ba, has_mm=has_mm, mm_cap=MM_CAP)[1]
+        return program
+
+    def _call_update_step(self, bucket, run_ba, has_mm, k_cap):
+        """Run the update program at ``bucket``: eagerly on the CPU (or
+        with ``cuda_graphs=False``), else by replaying its CUDA graph,
+        captured the first time its key is reached."""
+        self.buckets_seen[bucket] = self.buckets_seen.get(bucket, 0) + 1
+        program = self._update_program(bucket, run_ba, has_mm, k_cap)
+        if not self.cuda_graphs:
+            return program()
+        key = (bucket, run_ba, has_mm, k_cap, corr_cuda.FUSED_VERSION)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(key, program, bucket)
+        graph, mag, launches = self._graphs[key]
+        graph.replay()
+        _cuda.replayed(launches)
+        return mag
+
+    def _capture(self, key, program, bucket):
+        """Capture ``program`` as a CUDA graph: one eager warm-up on a side
+        stream (on a copy of the state it writes, put back after), then
+        the capture into the engine's graph pool, shared by all its graphs
+        (their replays never overlap).  A failed capture raises.  -> (graph,
+        its magnitude output, the launches one replay makes)."""
+        ds = self.ds
+        t_c = time.perf_counter()
+        written = (ds.net[:bucket], ds.target[:bucket], ds.weight[:bucket],
+                   ds.poses, ds.patches)
+        saved = [t.clone() for t in written]
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            program()
+        here.wait_stream(side)
+        for dst, src in zip(written, saved):
+            dst.copy_(src)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with _cuda.captured_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                mag = program()
+        self.graph_capture_ms[key] = (time.perf_counter() - t_c) * 1e3
+        return graph, mag, launches
+
+    def graph_pool_bytes(self):
+        """Bytes the card reserves for the engine's graph pool (from the
+        allocator's snapshot), or None without graphs."""
+        if self._graph_pool is None:
+            return None
+        segs = torch.cuda.memory._snapshot()["segments"]
+        return sum(s["total_size"] for s in segs
+                   if tuple(s.get("segment_pool_id", ())) ==
+                   tuple(self._graph_pool))
+
+    # --- core steps --------------------------------------------------------
 
     def _update_k_cap(self):
         """The patch capacity of an update (its groups are k_cap + 8):
@@ -385,11 +530,14 @@ class DPVO:
         k_cap = 1 << math.ceil(math.log2(
             max(len(np.unique(kk)) + 8, 1024)))
         ba_fn = ba.ba_global if n_cap >= 64 else ba.ba_iterative
-        ds.poses, ds.patches = ba_fn(
+        poses, patches = ba_fn(
             ds.poses, ds.patches, ds.intrinsics[0], t_p, w_p, 1e-4,
             *(self._dev(np.concatenate([a, pad])) for a in (ii, jj, kk)),
             self._dev(np.arange(cap) < E), t0, self.n, n_cap=n_cap,
             k_cap=k_cap, iterations=2)
+        # in place: the update's graphs hold the state's addresses
+        ds.poses.copy_(poses)
+        ds.patches.copy_(patches)
         self.ran_global_ba[self.n] = True
 
     def normalize(self):
@@ -400,35 +548,61 @@ class DPVO:
         for t, (t0, dP) in self.hs.delta.items():
             self.hs.delta[t] = (t0, lie.se3_scale(dP, s))
 
-    def _motionmag_edges(self, i, j):
+    def _motionmag_edges(self, i, j, cap=MM_CAP):
+        """Fixed-capacity edge slice of one motionmag direction: (ii, jj,
+        kk, valid) numpy arrays of ``cap`` rows and the live count.  A
+        direction holds at most M edges; the assert keeps a larger config
+        from silently changing keyframing."""
         hs = self.hs
         e = hs.e_num
         k = (hs.ii[:e] == i) & (hs.jj[:e] == j)
-        return tuple(self._dev(a[:e][k].astype(np.int64))
-                     for a in (hs.ii, hs.jj, hs.kk))
+        cnt = int(k.sum())
+        assert cnt <= cap, (
+            f"motionmag edge slice overflow: {cnt} > {cap}; raise cap "
+            f"(PATCHES_PER_FRAME={self.M})")
+        out = [np.zeros(cap, np.int32) for _ in range(3)]
+        for dst, src in zip(out, (hs.ii, hs.jj, hs.kk)):
+            dst[:cnt] = src[:e][k]
+        valid = np.zeros(cap, bool)
+        valid[:cnt] = True
+        return (*out, valid, cnt)
 
     def motionmag(self, i, j):
         """Mean flow magnitude of the live edges from frame ``i`` into frame
-        ``j`` on the current poses (0.0 when no edge joins them): one host
-        read.  The engine's own decisions use ``flowmag_two`` on the
-        device instead."""
-        ii, jj, kk = self._motionmag_edges(i, j)
-        if ii.numel() == 0:
+        ``j`` on the current poses (0.0 when no edge joins them): one
+        upload, one host read.  The engine's own decisions take the
+        magnitude inside the update program instead."""
+        *edges, cnt = self._motionmag_edges(i, j)
+        if cnt == 0:
             return 0.0
+        blob = self._dev(np.concatenate([a.astype(np.int32) for a in edges]))
+        p = kernels.split_blob(blob, (MM_CAP,) * 4, bools=(3,))
         return float(kernels.flowmag_pair(self.ds.poses, self.ds.patches,
-                                          self.ds.intrinsics, ii, jj, kk))
+                                          self.ds.intrinsics, *p))
 
-    def _candidate(self):
-        """The keyframe candidate's motion-magnitude edges, both directions
-        (ii, jj, kk each), and its timestamp; None while it has no edges."""
+    def _candidate_blob(self):
+        """The keyframe candidate's motionmag edges, both directions, packed
+        into one (8 * MM_CAP,) int32 array, and its timestamp; (an
+        all-invalid blob, None) while it has no edges."""
         cfg = self.cfg
         i = self.n - cfg.KEYFRAME_INDEX - 1
         j = self.n - cfg.KEYFRAME_INDEX + 1
-        a = self._motionmag_edges(i, j)
-        b = self._motionmag_edges(j, i)
-        if not (a[0].numel() or b[0].numel()):
-            return None
-        return a, b, int(self.hs.tstamps[self.n - cfg.KEYFRAME_INDEX])
+        *a, na = self._motionmag_edges(i, j)
+        *b, nb = self._motionmag_edges(j, i)
+        if na == 0 and nb == 0:
+            return np.zeros(8 * MM_CAP, np.int32), None
+        blob = np.concatenate([x.astype(np.int32) for x in (*a, *b)])
+        return blob, int(self.hs.tstamps[self.n - cfg.KEYFRAME_INDEX])
+
+    def _mm_blob(self):
+        """The update program's magnitude input: (blob, candidate
+        timestamp) with lagged decisions, the blob all-invalid and the
+        timestamp None while there is no candidate (so each bucket has one
+        program); (None, None) with synchronous ones, which take the
+        magnitude after the update (``keyframe``)."""
+        if not self.cfg.ASYNC_KEYFRAME:
+            return None, None
+        return self._candidate_blob()
 
     def _flush_mags(self):
         """Stack the pending magnitudes into one vector and start its copy
@@ -507,11 +681,11 @@ class DPVO:
             self._tock(t_l, "keyframe/launch")
             self._apply_overdue()
         else:
-            cand = self._candidate()
-            if cand is not None:
-                a, b, tcand = cand
-                mag = kernels.flowmag_two(ds.poses, ds.patches,
-                                          ds.intrinsics, a, b)
+            blob, tcand = self._candidate_blob()
+            if tcand is not None:
+                mag = kernels.flowmag_two_blob(ds.poses, ds.patches,
+                                               ds.intrinsics,
+                                               self._dev(blob), MM_CAP)
                 self._keyframe_apply(float(mag), tcand)
 
         # retire edges outside the removal window; under loop closure the

@@ -3,17 +3,19 @@
 Counterpart of ``dpvo_tpu/engine/kernels.py``.  Each function is one step
 the host engine (``engine.dpvo.DPVO``) runs on the device state; where the
 JAX programs returned new arrays, these update ``DeviceState`` tensors in
-place.  The update step runs at the live edge count (no shape buckets):
-every row it sees is live.
+place.  The update step runs at a static edge bucket with the rows past the
+live count masked, so the engine can replay it as a CUDA graph.
 
 - ``track_frame_u8`` / ``track_frame`` — Patchifier forward on one frame,
   ring writes, damped-linear motion model and depth init;
-- ``update_step`` — edge metadata, reprojection, the correlation (the
+- ``update_step_dev`` — edge metadata, reprojection, the correlation (the
   fused correlation + corr-encoder kernel, or at ``DPVO_CORR_VERSION`` other
   than 13 the two-level correlation kernel in that version's layout), the
-  recurrent update, local BA;
+  recurrent update, local BA and the keyframe candidate's magnitude, at a
+  bucket; ``update_step`` the same at the exact live count;
 - ``motion_probe`` — median flow delta for the init motion check;
-- ``flowmag_pair`` / ``flowmag_two`` — keyframe motion magnitude;
+- ``flowmag_pair`` / ``flowmag_two`` / ``flowmag_two_blob`` (with
+  ``split_blob``) — keyframe motion magnitude over fixed-capacity edges;
 - ``compact_frames``, ``append_edges``, ``permute_edges``,
   ``shift_edge_indices``, ``relative_pose`` — keyframe merge and edge
   table bookkeeping;
@@ -28,7 +30,7 @@ import torch
 from ..models.update import DIM, Update, compact_meta_for
 from ..models.vonet import (Patchifier, image_gradient, normalize_images,
                             select_centroids)
-from ..ops import ba, graph, lie, projective as pops, scatter
+from ..ops import agg_cuda, ba, graph, lie, projective as pops, scatter
 from ..ops import corr as corr_ops, corr_cuda
 from ..ops.corr_cuda import PAD
 from .state import DeviceState
@@ -142,33 +144,53 @@ def _corr_act(ds, update_mod, coords, kk_mod, jj_mod):
     return ("enc", act)
 
 
-def update_step(ds: DeviceState, update_mod: Update, e_num, t0, t1, M,
-                pmem, mem, n_cap, k_cap, iterations=2, run_ba=True):
-    """Reproject -> correlate -> recurrent update -> bundle adjust over the
-    ``e_num`` live edges; writes net/target/weight rows, poses and patches
-    of ``ds``.  Returns the flow deltas (E, 2)."""
-    E = e_num
-    ii = ds.eii[:E].long()
-    jj = ds.ejj[:E].long()
-    kk = ds.ekk[:E].long()
-    valid = torch.ones(E, dtype=torch.bool, device=ii.device)
+def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
+                    t0, t1, mm_blob, M, pmem, mem, n_cap, k_cap,
+                    iterations=2, run_ba=True, has_mm=False, mm_cap=256):
+    """Reproject -> correlate -> recurrent update -> bundle adjust as one
+    fixed-shape program over rows [0, bucket) of the device edge tables,
+    the rows at or past ``e_num`` masked (``update_step_dev`` of the JAX
+    package).  All edge metadata is computed here, and with ``has_mm`` the
+    keyframe candidate's motion magnitude too, on the poses after local BA
+    (``flowmag_two_blob`` of ``mm_blob``, (8 * mm_cap,) int32).
+
+    ``bucket``, ``run_ba``, ``has_mm``, ``k_cap`` are static; ``e_num``,
+    ``t0``, ``t1`` are ints or integer device scalars, so the program
+    reads no value on the host and can be captured in a CUDA graph.
+    Masked rows are neutral: their indices clamp to 0, their target and
+    weight are 0, and their patch and frame-pair keys are INT_MAX, so they
+    sort to the tail as one group, whose rank stays inside the pair
+    poses' capacity (k_cap + 8).  No segment sum adds that tail as one
+    long run: the SoftAggs rank it past their table here
+    (``agg_cuda.skip_masked``), BA's sums take it as a group per row
+    (``agg_cuda.split_masked`` in ``ba_iterative``).  Writes rows
+    [0, bucket) of net/target/weight, poses and patches IN PLACE (a graph
+    holds the addresses).  -> (delta (bucket, 2), magnitude (device
+    scalar) or None)."""
+    dev = ds.eii.device
+    imax = scatter.INT_MAX
+    valid = torch.arange(bucket, device=dev) < e_num
+    ii = torch.where(valid, ds.eii[:bucket].long(), 0)
+    jj = torch.where(valid, ds.ejj[:bucket].long(), 0)
+    kk = torch.where(valid, ds.ekk[:bucket].long(), 0)
     P = ds.patches.shape[-1]
     c = P // 2
 
     # ONE (kk, jj) sort feeds the temporal neighbors, the agg_kk metadata
     # and the BA edge sort
-    pair = ii * 12345 + jj
-    order = graph.lexsort_kk_jj(kk, jj)
-    nbrs = graph.neighbors_from_order(kk, valid, order)
-    cm_kk = scatter.group_meta_compact(kk, order=order)
+    kk_g = torch.where(valid, kk, imax)
+    pair = torch.where(valid, ii * 12345 + jj, imax)
+    order = graph.lexsort_kk_jj(kk_g, jj)
+    nbrs = graph.neighbors_from_order(kk_g, valid, order)
+    cm_kk = scatter.group_meta_compact(kk_g, order=order)
     cm_ij = scatter.group_meta_compact(pair)
     g_cap = k_cap + 8
 
     # relative poses per frame PAIR: each pair rank's first sorted member
     perm_ij, gid_s_ij, gid_o_ij = cm_ij
     first = torch.searchsorted(
-        gid_s_ij, torch.arange(g_cap, dtype=torch.int32, device=ii.device)
-    ).clamp(max=E - 1)
+        gid_s_ij, torch.arange(g_cap, dtype=torch.int32, device=dev)
+    ).clamp(max=bucket - 1)
     pair_rep = perm_ij[first]
     Gij_tab = lie.se3_mul(ds.poses[jj[pair_rep]],
                           lie.se3_inv(ds.poses[ii[pair_rep]]))
@@ -178,21 +200,41 @@ def update_step(ds: DeviceState, update_mod: Update, e_num, t0, t1, M,
     kk_mod = kk % (M * pmem)
     corr = _corr_act(ds, update_mod, coords, kk_mod, jj % mem)
     ctx = ds.imap[kk_mod].float()
+    meta = tuple((perm, agg_cuda.skip_masked(gid_s, valid[perm], g_cap),
+                  gid_o) for perm, gid_s, gid_o in (cm_kk, cm_ij))
     net, delta, weight = update_mod(
-        ds.net[:E], ctx, corr, ii, jj, kk, valid, nbrs=nbrs,
-        compact_meta=(cm_kk, cm_ij), g_cap=g_cap)
-    target = coords[:, c, c] + delta
+        ds.net[:bucket], ctx, corr, ii, jj, kk, valid, nbrs=nbrs,
+        compact_meta=meta, g_cap=g_cap)
+    target = torch.where(valid[:, None], coords[:, c, c] + delta, 0.0)
 
     if run_ba:
-        ds.poses, ds.patches = ba.ba_iterative(
+        poses, patches = ba.ba_iterative(
             ds.poses, ds.patches, ds.intrinsics[0], target, weight, 1e-4,
             ii, jj, kk, valid, t0, t1, n_cap=n_cap, k_cap=k_cap,
             iterations=iterations, eperm=order, pair_gid=gid_o_ij,
             pair_cap=g_cap, pair_rep=pair_rep)
+        ds.poses.copy_(poses)
+        ds.patches.copy_(patches)
 
-    ds.net[:E] = net.float()
-    ds.target[:E] = target
-    ds.weight[:E] = weight
+    ds.net[:bucket].copy_(net)
+    ds.target[:bucket].copy_(target)
+    ds.weight[:bucket].copy_(weight)
+
+    mag = None
+    if has_mm:
+        mag = flowmag_two_blob(ds.poses, ds.patches, ds.intrinsics, mm_blob,
+                               mm_cap)
+    return delta, mag
+
+
+def update_step(ds: DeviceState, update_mod: Update, e_num, t0, t1, M,
+                pmem, mem, n_cap, k_cap, iterations=2, run_ba=True):
+    """``update_step_dev`` over exactly the ``e_num`` live edges (host
+    ints; no magnitude): the exact-count program the dev benches and the
+    sharded update's reference time and hold.  -> delta (e_num, 2)."""
+    delta, _ = update_step_dev(ds, update_mod, e_num, e_num, t0, t1, None,
+                               M, pmem, mem, n_cap, k_cap,
+                               iterations=iterations, run_ba=run_ba)
     return delta
 
 
@@ -217,19 +259,36 @@ def motion_probe(ds: DeviceState, update_mod: Update, ii, jj, kk, M, pmem,
 # keyframing
 # ---------------------------------------------------------------------------
 
-def flowmag_pair(poses, patches, intrinsics, ii, jj, kk):
-    """Mean flow magnitude over the given edges (0 for none)."""
-    if ii.numel() == 0:
-        return torch.zeros((), device=poses.device)
+def flowmag_pair(poses, patches, intrinsics, ii, jj, kk, valid):
+    """Mean flow magnitude over the valid rows of fixed-capacity edge
+    arrays (0 for none); invalid rows are computed at index 0 and
+    masked."""
+    ii, jj, kk = (torch.where(valid, a.long(), 0) for a in (ii, jj, kk))
     flow, _ = pops.flow_mag(poses, patches, intrinsics, ii, jj, kk,
                             beta=0.5)
-    return flow.mean()
+    cnt = (valid.sum() * (flow.shape[1] * flow.shape[2])).clamp(min=1)
+    return torch.where(valid[:, None, None], flow, 0.0).sum() / cnt
 
 
 def flowmag_two(poses, patches, intrinsics, a, b):
-    """Both keyframe motionmag directions; a, b = (ii, jj, kk) each."""
+    """Both keyframe motionmag directions; a, b = (ii, jj, kk, valid)
+    each."""
     return (flowmag_pair(poses, patches, intrinsics, *a)
             + flowmag_pair(poses, patches, intrinsics, *b))
+
+
+def split_blob(blob, sizes, bools=()):
+    """Split one packed int32 tensor into consecutive slices of ``sizes``
+    (views), the slices at the indices ``bools`` cast to bool."""
+    out = blob.split(list(sizes))
+    return tuple(a.bool() if i in bools else a for i, a in enumerate(out))
+
+
+def flowmag_two_blob(poses, patches, intrinsics, blob, cap):
+    """``flowmag_two`` with both directions' (ii, jj, kk, valid) packed into
+    one (8 * cap,) int32 tensor."""
+    p = split_blob(blob, (cap,) * 8, bools=(3, 7))
+    return flowmag_two(poses, patches, intrinsics, p[:4], p[4:])
 
 
 def compact_frames(ds: DeviceState, k, n, M, pmem, mem, shift_cap):

@@ -11,7 +11,11 @@ rebuilt arrays):
 - the active edge table (hidden state, target, weight, and device twins
   of the host ii/jj/kk) with the first ``e_num`` rows live;
 - the inactive edge store of global BA (loop closure): the target and
-  weight rows of retired edges, the first ``n_inac`` live.
+  weight rows of retired edges, the first ``n_inac`` live;
+- the update program's inputs, one int32 tensor the host refreshes with
+  one copy per update: ``e_num``, ``t0``, ``t1``, then the keyframe
+  candidate's packed edges (``UPDATE_SCALARS`` + 8 * ``MM_CAP``).  A CUDA
+  graph of the update reads them at this fixed address.
 
 The host owns the edge bookkeeping (numpy), the inactive edges' indices
 included.
@@ -27,6 +31,9 @@ import torch
 from ..config import VOConfig
 from ..models.update import DIM
 from ..ops.corr_cuda import padded_hw
+
+MM_CAP = 256          # edges a keyframe motionmag direction can hold
+UPDATE_SCALARS = 3    # e_num, t0, t1 ahead of the packed candidate edges
 
 
 @dataclass
@@ -50,6 +57,8 @@ class DeviceState:
 
     target_inac: Any  # (EDGE_CAPACITY_INAC, 2) f32 — retired edges
     weight_inac: Any  # (EDGE_CAPACITY_INAC, 2) f32
+
+    update_in: Any    # (UPDATE_SCALARS + 8 * MM_CAP,) i32 update inputs
 
 
 @dataclass
@@ -102,6 +111,7 @@ def allocate(cfg: VOConfig, ht: int, wd: int, P: int, pmem: int, mem: int,
         ekk=z(E, dtype=torch.int32),
         target_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
         weight_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
+        update_in=z(UPDATE_SCALARS + 8 * MM_CAP, dtype=torch.int32),
     )
 
 

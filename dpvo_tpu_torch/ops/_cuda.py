@@ -9,10 +9,14 @@ rebuilds.
 
 ``launches`` counts kernel launches by name: each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went through.
+A CUDA graph capture launches nothing: ``captured_launches`` takes the
+counts its wrappers added back out, and each replay of the graph adds them
+(``replayed``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -51,6 +55,26 @@ _SIGNATURES = {
 
 def reset_launches():
     launches.clear()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a Counter that, when the block
+    ends, holds the launches its wrappers counted, which are taken back out
+    of ``launches`` (the capture records the kernels, it runs none)."""
+    before = launches.copy()
+    captured: collections.Counter = collections.Counter()
+    try:
+        yield captured
+    finally:
+        captured.update(launches - before)
+        launches.clear()
+        launches.update(before)
+
+
+def replayed(captured: collections.Counter):
+    """Count one replay of a graph whose capture counted ``captured``."""
+    launches.update(captured)
 
 
 def _nvcc() -> str:

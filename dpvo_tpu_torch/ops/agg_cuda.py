@@ -36,6 +36,31 @@ def padded_groups(g_cap: int) -> int:
     return g_cap + BLK2
 
 
+# A padded edge bucket keys its masked rows to INT_MAX, so they sort to
+# the tail as one group of up to thousands of rows, which a kernel adds as
+# one run on one block (K3 and K4 read 3-39x their live-row times so).
+# Two ways keep that run out, one per kernel's contract; both leave the
+# live groups' sums as they were.
+
+def skip_masked(gid_sorted, live_sorted, g_cap):
+    """The dense ranks ``gid_sorted`` (E,) of group-sorted rows with the
+    masked rows (``live_sorted`` False) moved past the table of ``g_cap``,
+    so ``segment_softmax_sums`` never sums them: its blocks own one group
+    each and write zeros for a group with no rows, so the gap this leaves
+    is fine there (not in ``segment_sums``)."""
+    return torch.where(live_sorted, gid_sorted, padded_groups(g_cap))
+
+
+def split_masked(gid_sorted, live_sorted):
+    """Dense ranks ``gid_sorted`` (E,) of group-sorted rows with the masked
+    tail a group per row: its ranks count up by one a row from its own,
+    so they stay dense (step <= 1, no gap), as ``segment_sums`` needs (it
+    writes no row inside a gap), and the ranks past the table are dropped
+    as before."""
+    tail = torch.cumsum(~live_sorted, 0, dtype=gid_sorted.dtype) - 1
+    return gid_sorted + torch.where(live_sorted, 0, tail)
+
+
 def _segment_total(rows, gid, G):
     """Plain per-group sums of sorted rows; ranks >= G are dropped."""
     keep = gid < G

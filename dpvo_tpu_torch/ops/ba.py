@@ -68,6 +68,26 @@ def _edge_terms_center(poses, ctr, fx, fy, cx, cy, target, ii, jj, kk,
     return r, mask, Ji_rows, Jj_rows, Jz_rows
 
 
+def _patch_slots(kk_m, eperm, k_cap, K):
+    """The compact depth slots of ``ba_iterative``, with no host
+    synchronisation (``compactify`` over the edge sort, no ``nonzero`` and
+    no boolean-mask writes).  kk_m (E,) valid-masked patch ids (INT_MAX
+    where invalid), eperm a stable sort of them.  Returns (gid (E,) int32
+    the dense rank of each SORTED row's patch, ranks past k_cap folded into
+    k_cap; kx (k_cap,) the sorted unique ids, INT_MAX past the last;
+    slot_of_k (K,) the slot of each patch row; hit_k (K,) bool, the rows
+    whose depth BA writes).  Slots past the patch rows scatter into a trash
+    row K."""
+    dev = kk_m.device
+    kx, ku = compactify(kk_m, k_cap, order=eperm)
+    dst = torch.where(kx < K, kx, K)
+    slot_of_k = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter_(
+        0, dst, torch.arange(k_cap, device=dev))[:K]
+    hit_k = torch.zeros(K + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, dst, True)[:K]
+    return ku[eperm].int(), kx, slot_of_k, hit_k
+
+
 def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
                  ii, jj, kk, valid, t0, t1, n_cap, k_cap, iterations=2,
                  eperm=None, pair_gid=None, pair_cap=None, pair_rep=None):
@@ -75,8 +95,11 @@ def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
 
     poses (Np, 7); patches (Kp, 3, P, P); intrinsics (4,) shared
     [fx, fy, cx, cy]; target, weight (E, 2); lmbda float; ii, jj, kk (E,)
-    int; valid (E,) bool; poses in [t0, t1) are free (host ints);
-    n_cap >= t1 - t0 pose-block capacity; k_cap unique-patch capacity.
+    int; valid (E,) bool; poses in [t0, t1) are free (host ints or
+    integer device scalars); n_cap >= t1 - t0 pose-block capacity; k_cap
+    unique-patch capacity.  Runs with no host synchronisation, so it can be
+    captured in a CUDA graph.  The masked rows enter the coupling sums as
+    a group each (``agg_cuda.split_masked``), with zero weight.
     eperm      optional stable sort of the valid-masked kk (any tie order)
     pair_gid   optional (E,) dense frame-pair ranks (< pair_cap) in input
                order: relative poses per PAIR instead of per edge
@@ -96,12 +119,14 @@ def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
     kk_m = torch.where(valid, kk.long(), INT_MAX)
     if eperm is None:
         eperm = torch.sort(kk_m, stable=True).indices
+    gid, kx, slot_of_k, hit_k = _patch_slots(kk_m, eperm, k_cap, K)
+    kx_c = kx.clamp(0, K - 1)
     ii_o, jj_o = ii.long(), jj.long()
     ii, jj, kk = ii_o[eperm], jj_o[eperm], kk.long()[eperm]
     valid = valid[eperm]
+    gid = agg_cuda.split_masked(gid, valid)
     target = target[eperm]
     weight = weight[eperm]
-    kk_m = kk_m[eperm]                                      # sorted
 
     pg = rep_ii = rep_jj = None
     if pair_gid is not None:
@@ -113,23 +138,6 @@ def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
                              device=dev)
             rep.scatter_reduce_(0, pg, torch.arange(E, device=dev), "amin")
             rep_ii, rep_jj = ii[rep], jj[rep]
-
-    # compact slot (dense rank) of every sorted edge's patch
-    new_run = torch.ones(E, dtype=torch.bool, device=dev)
-    new_run[1:] = kk_m[1:] != kk_m[:-1]
-    gid = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
-    first = torch.nonzero(new_run).squeeze(1)
-    g_first = gid[first].long()
-    keep = g_first < k_cap
-    kx = torch.full((k_cap,), INT_MAX, dtype=torch.int64, device=dev)
-    kx[g_first[keep]] = kk_m[first[keep]]                   # sorted uniques
-    slot = torch.arange(k_cap, device=dev)
-    hit = kx < K
-    slot_of_k = torch.zeros(K, dtype=torch.int64, device=dev)
-    slot_of_k[kx[hit]] = slot[hit]
-    hit_k = torch.zeros(K, dtype=torch.bool, device=dev)
-    hit_k[kx[hit]] = True
-    kx_c = kx.clamp(0, K - 1)
 
     ctr = patches[:, :, P // 2, P // 2].clone()              # (K, 3)
     D = 6 * n_cap

@@ -59,9 +59,11 @@ def transform(poses, patches, intrinsics, ii, jj, kk, depth=False,
     else:
         Gij = Gij.float()
     if tonly:
-        unit = torch.tensor([0.0, 0.0, 0.0, 1.0], device=Gij.device)
-        Gij = torch.cat([Gij[..., :3], unit.expand(Gij.shape[:-1] + (4,))],
-                        dim=-1)
+        # the unit quaternion made on the device: no upload, so the
+        # update program can be captured in a CUDA graph
+        unit = Gij.new_zeros(Gij.shape[:-1] + (4,))
+        unit[..., 3] = 1.0
+        Gij = torch.cat([Gij[..., :3], unit], dim=-1)
     X1 = lie.se3_act4(Gij[:, None, None], X0)
     x1 = proj(X1, intrinsics[jj], depth=depth)
     if jacobian:

@@ -68,17 +68,22 @@ def group_meta_compact(ids, order=None):
     return perm, gid_sorted, gid_orig
 
 
-def compactify(ix, size, fill=INT_MAX):
+def compactify(ix, size, fill=INT_MAX, order=None):
     """Static-shape counterpart of ``torch.unique(ix, return_inverse=True)``.
 
     Returns (kx, ku): ``kx`` (size,) the sorted unique values of ``ix``
     (E,), padded with ``fill``; ``ku`` (E,) int64 the slot of each element
     in ``kx``.  Uniques past ``size`` are dropped and their elements get
     slot ``size`` (one past the end), as a search of ``kx`` would give.
-    One sort, the run heads and a scatter into ``size + 1`` slots, the
-    last of which takes the writes of non-head and dropped elements."""
+    One sort (or ``order``, a precomputed sort of ``ix`` in any tie order),
+    the run heads and a scatter into ``size + 1`` slots, the last of which
+    takes the writes of non-head and dropped elements."""
     E = ix.shape[0]
-    s, perm = torch.sort(ix)
+    if order is None:
+        s, perm = torch.sort(ix)
+    else:
+        perm = order.long()
+        s = ix[perm]
     head = torch.ones(E, dtype=torch.bool, device=ix.device)
     head[1:] = s[1:] != s[:-1]
     rank = (torch.cumsum(head, 0) - 1).clamp(max=size)

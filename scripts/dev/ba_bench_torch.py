@@ -10,8 +10,8 @@ frames before frame 44 of a 256-frame, M=96 buffer, sorted by patch, each
 edge's target frame 1-11 after its source; targets uniform in [0, 150),
 weights in [0, 1); the pose window [34, 44), ``n_cap`` 16, ``k_cap`` 4096.
 The port's BA runs at the live count.  Device ms per call
-(``microbench_torch.timed``; ``ba_iterative`` synchronises with the host
-in its patch-slot step, so it is timed back to back) of:
+(``microbench_torch.timed``, from a CUDA graph: ``ba_iterative`` runs with
+no host synchronisation) of:
 
 - ``ba_iterative``, 2 iterations (K4 for the pose-depth coupling sums);
 - its per-iteration phases: the sort and patch slots, the residuals and
@@ -76,7 +76,8 @@ def phases(pb):
     body, on ``pb``'s edges."""
     import torch
     from dpvo_tpu_torch.ops import agg_cuda, lie
-    from dpvo_tpu_torch.ops.ba import INT_MAX, _edge_terms_center
+    from dpvo_tpu_torch.ops.ba import (INT_MAX, _edge_terms_center,
+                                       _patch_slots)
     poses, patches, target, weight = (pb[k] for k in ("poses", "patches",
                                                       "target", "weight"))
     ii, jj, kk, valid = (pb[k] for k in ("ii", "jj", "kk", "valid"))
@@ -89,13 +90,10 @@ def phases(pb):
     def sort_slots():
         kk_m = torch.where(valid, kk, INT_MAX)
         eperm = torch.sort(kk_m, stable=True).indices
-        kk_s = kk_m[eperm]
-        new_run = torch.ones(E, dtype=torch.bool, device=dev)
-        new_run[1:] = kk_s[1:] != kk_s[:-1]
-        gid = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
-        first = torch.nonzero(new_run).squeeze(1)
+        gid, kx, slot_of_k, hit_k = _patch_slots(kk_m, eperm, K_CAP,
+                                                 patches.shape[0])
         return (ii[eperm], jj[eperm], kk[eperm], target[eperm],
-                weight[eperm], gid, first)
+                weight[eperm], gid, kx, slot_of_k, hit_k)
 
     def terms():
         return _edge_terms_center(poses, ctr, fx, fy, cx, cy, target, ii,

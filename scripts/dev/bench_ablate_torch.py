@@ -6,14 +6,15 @@
 The port's counterpart of ``bench_ablate.py``, at its settings: the engine
 of ``bench_profile_torch.py`` (480x640, ``BUFFER_SIZE=256``, bf16,
 ``EDGE_CAPACITY=57344``, the rest default, seeded random weights, motion
-probe forced), 34 warm frames, then 20 timed frames ended by a device
-synchronise (``quick``: 12 and 5), in seven runs:
+probe forced), 34 warm frames (``quick``: 12), then frames until 8 in a
+row capture no new update graph, then 20 timed frames ended by a device
+synchronise (``quick``: 5), in seven runs:
 
 - full;
 - no merge: decisions are made but never applied (edges still retire);
-- no update: no ``update_step`` (no magnitudes, so no merges);
+- no update: no update program (no magnitudes, so no merges);
 - track only: no edges, no update, no keyframe step;
-- no BA: ``update_step`` with ``run_ba=False``;
+- no BA: ``update_step_dev`` with ``run_ba=False``;
 - plain correlation: K2 swapped for its plain PyTorch version
   (``chip_smoke.plain_correlation``), the counterpart of the JAX script's
   "corr XLA";
@@ -33,22 +34,25 @@ from pathlib import Path
 import microbench_torch as mb
 from bench_profile_torch import bench_engine, launch_note
 
+QUIET = 8          # warm frames in a row with no new graph before timing
+MAX_SETTLE = 64    # at most this many frames past the warm ones
+
 
 @contextlib.contextmanager
 def no_ba():
-    """``kernels.update_step`` with ``run_ba=False`` (the engine looks it up
-    at call time)."""
+    """``kernels.update_step_dev`` with ``run_ba=False`` (the engine looks it
+    up at call time, and captures its graphs from it)."""
     from dpvo_tpu_torch.engine import kernels
-    old = kernels.update_step
+    old = kernels.update_step_dev
 
     def step(*args, **kw):
         return old(*args, **dict(kw, run_ba=False))
 
-    kernels.update_step = step
+    kernels.update_step_dev = step
     try:
         yield
     finally:
-        kernels.update_step = old
+        kernels.update_step_dev = old
 
 
 def _no_merge(s):
@@ -66,7 +70,7 @@ def _track_only(s):
 
 
 def _no_mm(s):
-    s._candidate = lambda: None
+    s._mm_blob = lambda: (None, None)
     s._keyframe_apply = lambda m, tcand: None
 
 
@@ -87,10 +91,18 @@ def run(dev, label, patch, ctx, n_warm=34, n_bench=20):
     from dpvo_tpu_torch.ops import _cuda
     with ctx():
         slam, frame, intr = bench_engine(dev, n_warm, patch)
+        # then until QUIET frames in a row capture no new update graph, so
+        # the timed frames replay graphs and capture none
+        t, quiet = n_warm, 0
+        while quiet < QUIET and t < n_warm + MAX_SETTLE:
+            n_graphs = len(slam._graphs)
+            slam(t, frame(t), intr)
+            t += 1
+            quiet = quiet + 1 if len(slam._graphs) == n_graphs else 0
         torch.cuda.synchronize()
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        for t in range(n_warm, n_warm + n_bench):
+        for t in range(t, t + n_bench):
             slam(t, frame(t), intr)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / n_bench

@@ -30,7 +30,9 @@ partial.  The classic loop-closure backend's device work: PGO on a drifted
 300-pose loop, card against CPU within 1e-3 after first-pose alignment
 (the CPU tests' gate against the JAX package), and the structure-only BA
 of ``long_term.triangulate`` at 1024 keypoints with K4 launched, points
-within 1e-4 of the CPU's.
+within 1e-4 of the CPU's.  The engine's update program replayed as a CUDA
+graph equals the same program run eagerly, bitwise, and each replay counts
+its kernels' launches.
 """
 import numpy as np
 import pytest
@@ -387,6 +389,50 @@ def test_lagged_engine_card_vs_cpu(dev):
     np.testing.assert_allclose(p_gpu[:, :3], p_cpu[:, :3], atol=5e-2)
     qd = np.abs((p_gpu[:, 3:] * p_cpu[:, 3:]).sum(-1))
     assert np.all(qd > 1 - 1e-3)
+
+
+def test_update_graph_replay_vs_eager(dev):
+    """The engine's update program replayed as a CUDA graph against the same
+    program run eagerly, on one state of the small lagged drive (bucket 512
+    with masked rows): bitwise (the same kernels in the same order), and
+    the replay adds its kernels' launches to the counts."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=True, EDGE_CAPACITY=512, BA_WINDOW_CAP=8,
+                   KEYFRAME_THRESH=0.0, ASYNC_KEYFRAME=True,
+                   ASYNC_KEYFRAME_LAG=3, ASYNC_KEYFRAME_BATCH=2)
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    slam = DPVO(cfg, ht=96, wd=128, device=dev, seed=2)
+    slam.motion_probe = lambda: 100.0
+    for t in range(12):
+        slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+             np.array([64.0, 64.0, 64.0, 48.0]))
+    assert slam._graphs and slam.hs.e_num < 512
+    blob, tcand = slam._mm_blob()
+    assert tcand is not None
+    k_cap = slam._update_k_cap()
+    slam._stage_update(slam.hs.e_num, slam.n - 5, slam.n, blob)
+    names = ("net", "target", "weight", "poses", "patches")
+    saved = [getattr(slam.ds, k).clone() for k in names]
+    outs = []
+    for graph in (True, False):
+        for k, v in zip(names, saved):
+            getattr(slam.ds, k).copy_(v)
+        before = dict(_cuda.launches)
+        if graph:
+            mag = slam._call_update_step(512, True, True, k_cap)
+        else:
+            mag = slam._update_program(512, True, True, k_cap)()
+        torch.cuda.synchronize()
+        for name in ("corr_enc", "segment_softmax_sums", "segment_sums"):
+            assert _cuda.launches[name] > before.get(name, 0)
+        outs.append([getattr(slam.ds, k).clone() for k in names]
+                    + [mag.clone()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _drifted_loop(n, seed=2, noise=0.01):

@@ -27,9 +27,14 @@ engine's phase timers run over the windows (host dispatch time: no device
 synchronise at the phases' ends, as ``bench.py`` measures them;
 ``DPVO_TIMING=block`` fences each phase with one instead), and each
 regime logs ``timing_report()`` to stderr after its windows; the JSON line
-is the same.  The engine replays its update program as CUDA graphs, and
-each regime logs the buckets its updates ran at, each graph's capture ms
-and the graph pool's bytes to stderr.
+is the same.  The engine replays its tracking, update and merge programs
+as CUDA graphs.  As ``bench.py`` does, each regime calls
+``DPVO.precompile`` before its first frame (``max_edges`` 20480 for merge,
+46000 for retain) and again after the warm frames (``around`` the live
+edge count, 2 ladder steps), and logs to stderr the seconds, keys and
+graph pool bytes of each call, then the buckets its updates ran at, each
+graph's capture ms, the graph pool's bytes and the captures made inside
+the timed windows.
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ import numpy as np
 
 REGIMES = {"merge": dict(BUFFER_SIZE=256, KEYFRAME_THRESH=1e9),
            "retain": dict(BUFFER_SIZE=1024, KEYFRAME_THRESH=0.0)}
+# precompile's max_edges before the first frame (bench.py:71-73): the merge
+# regime's live edges overshoot to ~20.3k while lagged decisions are in
+# flight; the retain regime tops out near 45.3k
+PRECOMPILE_EDGES = {"merge": 20480, "retain": 46000}
 
 
 def log(*a):
@@ -112,10 +121,14 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     windows (``timing_block``: each phase fenced by a device synchronise;
     off, the host's dispatch time) and ``timing`` holds their
     ``timing_report()``, else None.  ``cuda_graphs`` is the engine's
-    (False: the update program runs eagerly on the card); ``graphs`` holds
-    the updates run at each edge bucket (``buckets``), the capture ms of
-    each graph key (``capture_ms``) and the graph pool's bytes
-    (``pool_bytes``, None without graphs)."""
+    (False: the programs run eagerly on the card).  ``DPVO.precompile``
+    runs where ``bench.py`` calls it, before the first frame and after the
+    warm frames, and ``graphs["precompile"]`` holds both calls' results.
+    ``graphs`` also holds the updates
+    run at each edge bucket (``buckets``), the capture ms of each graph
+    key (``capture_ms``), the graph pool's bytes (``pool_bytes``, None
+    without graphs) and the graphs captured inside the timed windows
+    (``window_captures``)."""
     import torch
     from dpvo_tpu_torch.device import resolve_device
     from dpvo_tpu_torch.engine import DPVO
@@ -133,6 +146,14 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    pre = []
+
+    def ready(**plan):
+        pre.append(slam.precompile(**plan))
+        log(f"[{regime}] precompile {plan}: {pre[-1]['seconds']:.2f} s, "
+            f"keys {list(pre[-1]['ms'])}, pool bytes {pre[-1]['pool_bytes']}")
+
+    ready(max_edges=PRECOMPILE_EDGES[regime])
     for t in range(n_warm):
         tw = time.perf_counter()
         slam(t, feed.get(t), intr)
@@ -140,9 +161,11 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
             f"{(time.perf_counter() - tw) * 1000:.0f}ms "
             f"(edges {slam.hs.e_num})")
     sync()
+    ready(around=slam.hs.e_num, steps=2)
     slam.enable_timing = timing
     slam.timing_block = timing_block
 
+    n_graphs = len(slam._graphs)
     windows, edges, per_frame = [], [], []
     t = n_warm
     while len(windows) < max_windows:
@@ -161,6 +184,7 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
             since_best = len(windows) - 1 - windows.index(max(windows))
             if top[0] > 0.9 * top[-1] and since_best >= 3:
                 break
+    window_captures = len(slam._graphs) - n_graphs
     report = None
     if timing:
         slam.enable_timing = False
@@ -190,7 +214,8 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     sync()
     graphs = dict(buckets=dict(sorted(slam.buckets_seen.items())),
                   capture_ms=dict(slam.graph_capture_ms),
-                  pool_bytes=slam.graph_pool_bytes())
+                  pool_bytes=slam.graph_pool_bytes(), precompile=pre,
+                  window_captures=window_captures)
     top = sorted(windows)[-5:]
     swin = sorted(windows)
     return dict(fps=top[len(top) // 2], median_fps=swin[len(swin) // 2],
@@ -234,7 +259,8 @@ def main(argv=None):
             f"updates per bucket {g['buckets']}; graphs "
             f"{len(g['capture_ms'])}, capture ms "
             f"{[round(v, 1) for v in g['capture_ms'].values()]}, pool bytes "
-            f"{g['pool_bytes']}")
+            f"{g['pool_bytes']}, captures inside the timed windows "
+            f"{g['window_captures']}")
     print(json.dumps(bench_line(results)))
     return 0
 

@@ -105,28 +105,36 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    absent, ``DPVO(..., CLASSIC_LOOP_CLOSURE=True)`` raising an
    ImportError naming ``cv2``);
 9. bench: ``bench_torch.run_regime``'s merge and retain regimes at the
-   default configuration (lagged keyframing), 30 warm frames and two
-   40-frame windows each, then 5 profiled frames: ms/frame per window,
-   live edges, the device idle share, launch counts, the box fit share at
-   the last eager update (the last capture's warm-up); the merge drive's
-   TUM trajectory and PLY map are written to a temporary directory and
-   read back;
-9b. graphs (the update program replayed as a CUDA graph, which every
-   card engine of the other phases does too, one graph per static key
-   captured at first reach): (a) one replay against the eager program on
-   the same state at the lagged merge drive's bucket 14336 and the retain
-   drive's 49152 (TOL_GRAPH, and whether bitwise; each timed with a
-   synchronise); (b) warm lagged merge frames under
-   ``torch.cuda.set_sync_debug_mode("error")`` until one applies a merge,
-   the overdue batch's event wait bracketed on its own; (c) the bench
-   merge drive with graphs against the same drive run eagerly
-   (``DPVO(cuda_graphs=False)``): structure exact, poses within
-   AGREE_BF16; (d) merge and retain with and without graphs (the graphs
-   arm is phase 9's runs, whose phase timers are on): ms/frame,
-   update/step and update/meta dispatch, device idle, buckets visited,
-   capture ms per graph, the graph pool's bytes, launches; and K2, K3
-   and K4 at the merge drive's padded bucket (its last eager update
-   program, each capture's warm-up) against their plain versions;
+   default configuration (lagged keyframing), ``DPVO.precompile`` as
+   ``bench.py`` calls it (before the first frame and after the warm
+   ones), 30 warm frames and two 40-frame windows each, then 5 profiled
+   frames: ms/frame per window, live edges, the device idle share, launch
+   counts, the box fit share at one eager update on the drive's end state;
+   the merge drive's TUM trajectory and PLY map are written to
+   a temporary directory and read back;
+9b. graphs (the tracking, update and merge programs replayed as CUDA
+   graphs, which every card engine of the other phases does too, one
+   graph per static key): (a) one update replay against the eager
+   program on the same state at the lagged merge drive's bucket 14336
+   and the retain drive's 49152 (TOL_GRAPH, and whether bitwise; each
+   timed with a synchronise), and on the merge drive's state one
+   tracking replay and one merge replay against their eager programs
+   from the same state and generator state (bitwise); (b) warm lagged
+   merge frames under ``torch.cuda.set_sync_debug_mode("error")`` until
+   one applies a merge, the overdue batch's event wait bracketed on its
+   own; (c) the bench merge drive with graphs against the same drive run
+   eagerly (``DPVO(cuda_graphs=False)``): structure exact, poses within
+   AGREE_BF16; (d) merge and retain with graphs after ``precompile``
+   (phase 9's runs, whose phase timers are on) and eagerly (no
+   ``precompile``; retain one window): ms/frame, the dispatch ms of
+   track_frame, keyframe/apply, update/step and update/meta, device idle,
+   buckets visited, capture ms per graph, the graph pool's bytes (largest
+   bucket first, against the engines of (a) and (b), which capture at
+   first reach), ``precompile``'s seconds, launches, and no capture
+   inside the timed windows after ``precompile``; and K2, K3 and K4 at
+   the merge drive's padded bucket (its eager update calls: the warm-ups
+   of captures at first reach, one update on its end state) against
+   their plain versions;
 10. redwood (Redwood fine-tuning, ``configs/redwood_train.yaml``): a
    synthetic 72-frame 480x640 Redwood tree (JPEG images, uint16 mm depth
    PNGs, a column-major PoseGraph JSON, ``intrinsic.npy``) through the
@@ -1050,26 +1058,38 @@ def last_calls():
     (``box[name]``): on a tie K3's first (an update's patch groups come
     before its frame-pair groups) and K4's last, and those of the first K3
     call with the most rows (``box["widest_softmax"]``); ``box["live"]``
-    maps each kept K3/K4 argument tuple's ``id`` to the live row count of
+    maps each kept K2/K3/K4 argument tuple's ``id`` to the live row count of
     the update program that made the call (a device scalar; None outside
     one: all rows live).  Calls inside a CUDA graph capture are not kept
     (their tensors live in the engine's graph pool, freed with the
-    engine), and a replay passes no wrapper: under graphs the box holds
-    the update program's eager runs, the warm-up of each capture on the
-    state it is captured from, and ``end_state_update``'s run."""
+    engine), nor calls inside ``DPVO.precompile`` (its warm-ups run on an
+    empty bucket), and a replay passes no wrapper: under graphs the box
+    holds the update program's eager runs, the warm-up of each capture at
+    first reach on the state it is captured from, and
+    ``end_state_update``'s run."""
     import torch
-    from dpvo_tpu_torch.engine import kernels
+    from dpvo_tpu_torch.engine import DPVO, kernels
     from dpvo_tpu_torch.ops import agg_cuda, corr_cuda
     box = dict(coords=None, corr_enc=None, segment_softmax_sums=None,
                segment_sums=None, widest_softmax=None, live={})
     old = (corr_cuda.corr_enc, corr_cuda.corr_fused,
            agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
            kernels.update_step_dev)
+    old_precompile = DPVO.precompile
     running = [None]
+    precompiling = [False]
 
     def eager():
-        return not (torch.cuda.is_available()
-                    and torch.cuda.is_current_stream_capturing())
+        return not (precompiling[0] or (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()))
+
+    def precompile(self, *args, **kw):
+        precompiling[0] = True
+        try:
+            return old_precompile(self, *args, **kw)
+        finally:
+            precompiling[0] = False
 
     def update_dev(ds, update_mod, bucket, e_num, *rest, **kw):
         if eager():
@@ -1084,6 +1104,7 @@ def last_calls():
         if eager():
             box["coords"] = (args[5], args[3], args[4])
             box["corr_enc"] = args
+            box["live"][id(args)] = running[0]
         return old[0](*args)
 
     def fused(g_pre, f1, f2, coords, *rest):
@@ -1110,12 +1131,14 @@ def last_calls():
                                                 old[2], later=False)
     agg_cuda.segment_sums = most_groups("segment_sums", old[3], later=True)
     kernels.update_step_dev = update_dev
+    DPVO.precompile = precompile
     try:
         yield box
     finally:
         (corr_cuda.corr_enc, corr_cuda.corr_fused,
          agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
          kernels.update_step_dev) = old
+        DPVO.precompile = old_precompile
 
 def device_profile(prof, wall_ms, n_frames, top=8, unit="frame"):
     """Device busy time (the union of the CUDA kernel intervals the
@@ -1266,8 +1289,8 @@ def phase_bench(dev, n_windows=2, n_profile=5):
             f"over their frames), keyframes {r['keyframes']}, launches "
             f"{r['launches']}")
         log(f"[profile] bench {regime} last {n_profile} frames: {profile}")
-        log(f"[bench] {regime} last eager update (the last capture's "
-            f"warm-up, {last['coords'][0].shape[0]} edges): "
+        log(f"[bench] {regime} one eager update on the drive's end state "
+            f"({last['coords'][0].shape[0]} edges): "
             + fit_share(*last["coords"]))
         ok = (np.isfinite(r["poses"]).all() and len(r["tstamps"]) == n
               and all(r["launches"].get(k, 0) > 0 for k in expect)
@@ -1468,10 +1491,11 @@ def check_frame_syncs(slam, feed, intr, t, max_frames=12):
         checked += 1
         merged = len(slam.hs.delta) - n_delta
     log(f"[graphs] merge: {checked} warm frame(s) (track_frame, "
-        f"append_factors, update, keyframe) under sync debug mode "
-        f"\"error\": no host synchronisation; {waits[0]} overdue-batch event "
-        f"wait(s) bracketed; {merged} merge(s) applied in the last "
-        f"{'OK' if merged else 'FAIL'}")
+        f"append_factors, update, keyframe with its merges; the tracking, "
+        f"update and merge programs replayed, no graph captured) under sync "
+        f"debug mode \"error\": no host synchronisation; {waits[0]} "
+        f"overdue-batch event wait(s) bracketed; {merged} merge(s) applied "
+        f"in the last {'OK' if merged else 'FAIL'}")
     if not merged:
         raise SystemExit("graphs: no checked frame applied a merge")
     return t
@@ -1479,13 +1503,21 @@ def check_frame_syncs(slam, feed, intr, t, max_frames=12):
 
 def check_padded_kernels(last, regime):
     """K2, K3 and K4 at the drive's padded buckets (``last_calls``: the
-    eager warm-ups of its captures; bucket rows with the rows past the live
-    count masked: in K3 ranked past its table, in K4 a group each), each
-    against its plain
-    version and timed on a graph: K2 at the last warm-up, K3 at the
-    widest, K4 at its warm-up call with the most groups."""
+    eager warm-ups of its captures at first reach and one eager update on
+    its end state; bucket rows with the rows past the live count masked:
+    in K3 ranked past its table, in K4 a group each), each against its
+    plain version and timed on a graph: K2 at the last eager call, K3 at
+    the widest, K4 at the call with the most groups.  Each call must hold
+    live rows and, for K3 and K4, live groups: a comparison on masked rows
+    alone would hold zeros against zeros."""
     import torch
+
+    def live_rows(args, rows):
+        live = last["live"][id(args)]
+        return rows if live is None else int(live)
+
     args = last["corr_enc"]
+    live2 = live_rows(args, args[5].shape[0])
     res = {}
     check_enc(res, f"at the {regime} drive's padded bucket", args)
     from dpvo_tpu_torch.ops import agg_cuda
@@ -1493,22 +1525,29 @@ def check_padded_kernels(last, regime):
     err3, ok3 = check_softmax_sums(gate, val, shift, gid, g_cap)
     ms3 = graph_ms(lambda: agg_cuda.segment_softmax_sums(gate, val, shift,
                                                          gid, g_cap))
-    live3 = last["live"][id(last["widest_softmax"])]
+    live3 = live_rows(last["widest_softmax"], len(gid))
+    groups3 = summed_groups(gid, g_cap, live3)
     vals, gid4, g_cap4 = last["segment_sums"]
-    live4 = last["live"][id(last["segment_sums"])]
+    live4 = live_rows(last["segment_sums"], len(gid4))
+    groups4 = summed_groups(gid4, g_cap4, live4)
     err4, err_ord, ok4 = check_segment_sums(vals, gid4, g_cap4)
     ms4 = graph_ms(lambda: agg_cuda.segment_sums(vals, gid4, g_cap4))
     err2 = next(iter(res["corr_enc"].values()))["max_abs_err"]
-    log(f"[graphs] {regime} padded kernels (the captures' eager "
-        f"warm-ups): K2 {args[5].shape[0]} rows at the last, max_abs_err "
-        f"{err2:.3e}; K3 at the widest, E={len(gid)} ({int(live3)} live) "
-        f"{summed_groups(gid, g_cap, live3)} live groups, the masked rows "
-        f"past the table, max_abs_err {err3:.3e}, {ms3:.4f} ms; K4 at the "
-        f"most groups, E={len(gid4)} ({int(live4)} live) "
-        f"{summed_groups(gid4, g_cap4, live4)} live groups, the masked rows "
-        f"a group each, max_abs_err {err4:.3e}, row-order {err_ord:.3e} "
-        f"(must be 0), {ms4:.4f} ms {'OK' if ok3 and ok4 else 'FAIL'}")
-    if not (ok3 and ok4):
+    live_ok = min(live2, live3, live4, groups3, groups4) > 0
+    ok = ok3 and ok4 and live_ok
+    log(f"[graphs] {regime} padded kernels (the drive's eager update "
+        f"calls: first-reach warm-ups, the end state): K2 "
+        f"{args[5].shape[0]} rows ({live2} live) at the last, max_abs_err "
+        f"{err2:.3e}; K3 at the widest, E={len(gid)} ({live3} live) "
+        f"{groups3} live groups, the masked rows past the table, max_abs_err "
+        f"{err3:.3e}, {ms3:.4f} ms; K4 at the most groups, E={len(gid4)} "
+        f"({live4} live) {groups4} live groups, the masked rows a group "
+        f"each, max_abs_err {err4:.3e}, row-order {err_ord:.3e} (must be "
+        f"0), {ms4:.4f} ms {'OK' if ok else 'FAIL'}")
+    if not live_ok:
+        raise SystemExit(f"graphs: a kernel call checked at the {regime} "
+                         f"drive's padded bucket held no live rows or groups")
+    if not ok:
         raise SystemExit(f"graphs: K3/K4 disagree with their plain versions "
                          f"at the {regime} drive's padded bucket")
     torch.cuda.synchronize()
@@ -1516,68 +1555,168 @@ def check_padded_kernels(last, regime):
 
 def graph_run(dev, regime, cuda_graphs, n_windows=2, n_profile=5):
     """bench_torch.run_regime with the phase timers on (host dispatch),
-    launch counts zeroed before and read after."""
+    launch counts zeroed before and read after.  Just before the engine's
+    ``terminate()`` one eager update runs on the drive's end state
+    (``end_state_update``, its launches not counted), so ``r["last"]``
+    holds an update on the drive's live rows even where ``precompile``
+    captured every graph the drive replays."""
     import torch
     import bench_torch
+    from dpvo_tpu_torch.engine import DPVO
     from dpvo_tpu_torch.ops import _cuda
+    old_terminate = DPVO.terminate
+
+    def terminate(self):
+        counted = _cuda.launches.copy()
+        end_state_update(self)
+        _cuda.launches.clear()
+        _cuda.launches.update(counted)
+        return old_terminate(self)
+
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    with last_calls() as last:
-        r = bench_torch.run_regime(regime, device=dev, min_windows=n_windows,
-                                   max_windows=n_windows,
-                                   profile_frames=n_profile, timing=True,
-                                   cuda_graphs=cuda_graphs)
+    DPVO.terminate = terminate
+    try:
+        with last_calls() as last:
+            r = bench_torch.run_regime(
+                regime, device=dev, min_windows=n_windows,
+                max_windows=n_windows, profile_frames=n_profile, timing=True,
+                cuda_graphs=cuda_graphs)
+    finally:
+        DPVO.terminate = old_terminate
     r["launches"] = dict(_cuda.launches)
     r["last"] = last
     return r
 
 
-def report_run(regime, r):
-    g = r["graphs"]
-    arm = "graphs" if g["pool_bytes"] is not None else "eager"
+def key_name(k):
+    """A graph key for the logs: the update's (bucket, local BA, magnitude,
+    k_cap, correlation version) as "14336 k4096" with " noBA" / " noMM"
+    where they are off; the others by their fields."""
+    if isinstance(k[0], str):
+        return "/".join(str(x) for x in k)
+    return (f"{k[0]}{'' if k[1] else ' noBA'}{'' if k[2] else ' noMM'} "
+            f"k{k[3]}")
+
+
+def report_run(regime, r, arm):
+    g, timing = r["graphs"], r["timing"]
     ms = [1e3 / w for w in r["windows"]]
-    step = r["timing"].get("update/step", (float("nan"), 0))
     pool = g["pool_bytes"]
+
+    def phase(name):
+        v = timing.get(name, (float("nan"), 0))
+        return f"{name} {v[0]:.3f} ms x{v[1]}"
+
     log(f"[graphs] {regime} {arm}: ms/frame per 40-frame window "
         + ", ".join(f"{m:.2f}" for m in ms)
-        + f" (fps {r['fps']:.2f}); update/step dispatch {step[0]:.2f} ms "
-        f"x{step[1]}; update/meta "
-        f"{r['timing'].get('update/meta', (float('nan'), 0))[0]:.3f} ms; "
-        f"buckets visited {g['buckets']}; graphs {len(g['capture_ms'])}, "
-        f"capture ms " + ", ".join(f"{k[0]}{'' if k[1] else ' noBA'}"
-                                   f"{'' if k[2] else ' noMM'} k{k[3]}: "
-                                   f"{v:.1f}" for k, v in
-                                   g["capture_ms"].items())
+        + f" (fps {r['fps']:.2f}); dispatch "
+        + "; ".join(phase(k) for k in ("track_frame", "keyframe/apply",
+                                       "update/step", "update/meta"))
+        + f"; buckets visited {g['buckets']}; graphs "
+        f"{len(g['capture_ms'])}, capture ms " + ", ".join(
+            f"{key_name(k)}: {v:.1f}" for k, v in g["capture_ms"].items())
         + f"; pool {'none' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
+        f"captures inside the timed windows {g['window_captures']}; "
         f"launches {r['launches']}")
-    log(f"[profile] graphs {regime} {arm} last 5 frames: "
-        + device_profile(*r["profile"]))
+    for i, pc in enumerate(g["precompile"]):
+        after = pc["pool_bytes"]
+        log(f"[graphs] {regime} {arm}: precompile call {i + 1}: "
+            f"{pc['seconds']:.2f} s, {len(pc['ms'])} keys readied "
+            f"({'captured' if after is not None else 'warmed eagerly'}), "
+            f"largest first: " + ", ".join(f"{key_name(k)} {v:.1f} ms"
+                                           for k, v in pc["ms"].items())
+            + "; pool after "
+            + ("none" if after is None else f"{after / 2**20:.1f} MiB"))
+    if r["profile"] is not None:
+        log(f"[profile] graphs {regime} {arm} last 5 frames: "
+            + device_profile(*r["profile"]))
+
+
+def program_replays_against_eager(slam, feed, t):
+    """On the engine's live state: one replay of the tracking graph (a
+    staged frame of the feed, as the next frame) and one of the merge
+    graph (k = n - KEYFRAME_INDEX; captured now if no merge has run yet)
+    each against its eager program from the same state and generator
+    state (``DPVO._replay_against_eager``); bitwise, the generator left as
+    far advanced (and only the tracking program advancing it); the state
+    put back after each."""
+    import torch
+    from dpvo_tpu_torch.engine.dpvo import MERGE_WRITES, TRACK_WRITES
+    ds, cfg = slam.ds, slam.cfg
+    slam._stage_track(feed.frame(t), np.array([320.0, 320.0, 320.0, 240.0]),
+                      slam.n, 1.0, slam.is_initialized)
+    k = slam.n - cfg.KEYFRAME_INDEX
+    res = {}
+    for name, writes, (key, program), draws in (
+            ("track", TRACK_WRITES, slam._track_program(), True),
+            ("merge", MERGE_WRITES, slam._merge_program(), False)):
+        if name == "merge":
+            slam._copy_in(ds.merge_in, np.array([k, slam.n], np.int32))
+        gen0 = slam.gen.get_state()
+        (a, ga), (b, gb) = slam._replay_against_eager(
+            key, program, slam._writes(writes), draws)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        advanced = not torch.equal(ga, gen0)
+        res[name] = all(same) and torch.equal(ga, gb) and advanced == draws
+        bad = [n for n, ok in zip(writes + ("dP",), same) if not ok]
+        log(f"[graphs] merge {name} replay against its eager program on the "
+            f"drive's state (n {slam.n}" + (f", k {k}" if name == "merge"
+                                            else "")
+            + f"): {'bitwise' if all(same) else f'differs in {bad}'}; "
+            f"generator after replay and eager "
+            f"{'equal' if torch.equal(ga, gb) else 'differ'}, "
+            f"{'advanced' if advanced else 'untouched'} "
+            f"{'OK' if res[name] else 'FAIL'}")
+    if not all(res.values()):
+        raise SystemExit("graphs: a tracking or merge replay differs from "
+                         "its eager program")
 
 
 def phase_graphs(dev, bench=None):
-    """The update program as CUDA graphs: (a) one replay against the eager
-    program on the same state at the merge and retain buckets; (b) warm
-    lagged merge frames under sync debug mode "error"; (c) the bf16 lagged
-    merge drive with graphs against the same drive run eagerly (structure
-    exact, poses within AGREE_BF16); (d) merge and retain with and without
-    graphs (``bench`` reuses phase_bench's runs for the graphs arm): ms/frame,
-    update/step dispatch, device idle, buckets, capture ms, pool bytes;
-    and K2/K3/K4 against their plain versions at the merge drive's padded
+    """The device programs as CUDA graphs: (a) one update replay against
+    the eager program on the same state at the merge and retain buckets,
+    and on the merge state one tracking and one merge replay against
+    theirs; (b) warm lagged merge frames under sync debug mode "error";
+    (c) the bf16 lagged merge drive with graphs against the same drive run
+    eagerly (structure exact, poses within AGREE_BF16); (d) merge and
+    retain with graphs after precompile (``bench`` reuses phase_bench's
+    runs) and eagerly: ms/frame, the phases' dispatch, device idle,
+    buckets, capture ms, precompile, pool bytes against the first-reach
+    pools of (a) and (b)'s engines, no capture in the timed windows; and
+    K2/K3/K4 against their plain versions at the merge drive's padded
     bucket."""
     t_phase = time.perf_counter()
+    first = {}
     for regime, bucket in GRAPH_CHECKS.items():
         slam, feed, intr = graph_engine(dev, regime)
         t = drive_to_bucket(slam, feed, intr, bucket)
         replay_against_eager(slam, regime, bucket)
         if regime == "merge":
-            check_frame_syncs(slam, feed, intr, t)
+            program_replays_against_eager(slam, feed, t)
+            t = check_frame_syncs(slam, feed, intr, t)
+        first[regime] = (slam.graph_pool_bytes(), len(slam._graphs), t)
         del slam, feed
     runs = {}
     for regime in ("merge", "retain"):
         with_g = (bench or {}).get(regime) or graph_run(dev, regime, True)
-        eager = graph_run(dev, regime, False)
-        report_run(regime, with_g)
-        report_run(regime, eager)
+        # (c) compares the merge drives window for window
+        eager = graph_run(dev, regime, False,
+                          n_windows=2 if regime == "merge" else 1)
+        report_run(regime, with_g, "graphs after precompile")
+        report_run(regime, eager, "eager")
+        pool, n_graphs, frames = first[regime]
+        log(f"[graphs] {regime} graph pool: "
+            f"{with_g['graphs']['pool_bytes'] / 2**20:.1f} MiB with "
+            f"precompile (largest bucket first, "
+            f"{len(with_g['graphs']['capture_ms'])} graphs) against "
+            f"{pool / 2**20:.1f} MiB at first reach ({n_graphs} graphs "
+            f"after the checks' {frames} frames)")
+        if with_g["graphs"]["window_captures"]:
+            raise SystemExit(f"graphs: {regime} captured "
+                             f"{with_g['graphs']['window_captures']} graphs "
+                             f"inside its timed windows after precompile")
         runs[regime] = (with_g, eager)
     check_padded_kernels(runs["merge"][0]["last"], "merge")
     g, e = runs["merge"]
@@ -1789,10 +1928,10 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
         + f"at keyframe counts {np.nonzero(slam.ran_global_ba)[0].tolist()};"
         f" peak live edges {peak_e}, peak inactive edges {peak_inac}; "
         f"max_memory_allocated {mem:.2f} GiB; launches {launches}")
-    keys = sorted(slam.graph_capture_ms)
+    keys = list(slam.graph_capture_ms)
     pool = slam.graph_pool_bytes()
-    log(f"[lc] full drive's update graphs: {len(keys)} captured (bucket, "
-        f"local BA, magnitude, k_cap): {[k[:4] for k in keys]}; capture ms "
+    log(f"[lc] full drive's graphs: {len(keys)} captured: "
+        f"{[key_name(k) for k in keys]}; capture ms "
         f"{sum(slam.graph_capture_ms.values()):.1f} in all; pool "
         f"{(pool or 0) / 2**20:.1f} MiB")
     log(f"[profile] lc full drive frames {profiled[0]}..{profiled[-1]} "
@@ -3717,8 +3856,13 @@ def main(argv):
                   file=sys.stderr)
             return 2
 
+    marks = []     # (phase, start) of each phase run, for the time log
+
     def run(phase):
-        return only is None or phase in only
+        on = only is None or phase in only
+        if on:
+            marks.append((phase, time.perf_counter()))
+        return on
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -3761,10 +3905,11 @@ def main(argv):
         phase_eval(dev)
     if run("classic"):
         phase_classic(dev)
+    bench = None
     if run("bench"):
         bench = phase_bench(dev)
     if run("graphs"):
-        phase_graphs(dev, bench if run("bench") else None)
+        phase_graphs(dev, bench)
     if run("redwood"):
         phase_redwood(dev)
     if run("viz"):
@@ -3773,6 +3918,10 @@ def main(argv):
         phase_sharded(dev)
     if run("tools"):
         phase_tools(dev)
+    marks.append(("", time.perf_counter()))
+    log("[machine] seconds per phase: " + ", ".join(
+        f"{name} {end - start:.1f}"
+        for (name, start), (_, end) in zip(marks, marks[1:])))
     if only is not None:
         log(f"[machine] ran {','.join(sorted(only))} alone: no kernels line")
         return 0

@@ -10,14 +10,26 @@ Counterpart of ``dpvo_tpu/engine/dpvo.py``, same public API::
 The host owns the edge bookkeeping (numpy); the device programs of
 ``engine.kernels`` update fixed-capacity device tensors in place.
 
-Each update is one fixed-shape program (``kernels.update_step_dev``) at a
-bucket of the JAX engine's ladder (``_bucket_for``), its inputs (the live
-count, the BA window and the keyframe candidate's packed edges) sent by
-one copy into ``DeviceState.update_in``; a steady frame never waits on the
-card but for the overdue batch of lagged decisions.  On the card the
-program replays as a CUDA graph, one per static key, captured the first
-time the key is reached; ``cuda_graphs=False`` runs it eagerly, as the CPU
-always does.
+The device work of a frame is three fixed-shape programs, each reading
+its dynamic inputs from a block of ``DeviceState`` that one copy refreshes
+(from a pinned host block, ``non_blocking``; a frame already on the card
+is copied device to device):
+
+- tracking (``kernels.track_frame_u8``): the frame (``image_in``) and
+  ``n``, ``fac``, ``is_initialized`` and the intrinsics (``track_in``);
+- the update (``kernels.update_step_dev``) at a bucket of the JAX engine's
+  ladder (``_bucket_for``): the live count, the BA window and the keyframe
+  candidate's packed edges (``update_in``);
+- the keyframe merge (``kernels.keyframe_merge``): ``k`` and ``n``
+  (``merge_in``), once per merge, in order.
+
+A steady frame never waits on the card but for the overdue batch of
+lagged decisions.  On the card each program replays as a CUDA graph, one
+per static key (tracking: the centroid strategy and the parity seam; the
+update: bucket, local BA, magnitude, patch capacity, correlation version;
+the merge: one), all in one pool, captured the first time the key is
+reached or ahead of the frames by ``precompile``; ``cuda_graphs=False``
+runs them eagerly, as the CPU always does.
 
 Keyframe decisions come in two timings:
 
@@ -64,6 +76,7 @@ without it the time is the host's dispatch alone.  The phases nest:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -74,12 +87,18 @@ import torch
 from ..config import VOConfig
 from ..device import resolve_device
 from ..models.update import Update
-from ..models.vonet import Patchifier, normalize_images
+from ..models.vonet import Patchifier
 from ..loop_closure.proximity import propose_loop_edges
 from ..ops import _cuda, ba, corr_cuda, lie
 from ..utils.checkpoint import load_network
 from . import kernels
-from .state import MM_CAP, UPDATE_SCALARS, allocate, allocate_host
+from .state import (MM_CAP, UPDATE_SCALARS, allocate, allocate_host,
+                    track_inputs)
+
+# what each program writes: a capture's eager warm-up puts these back
+TRACK_WRITES = ("poses", "patches", "intrinsics", "colors", "imap", "gmap",
+                "fmap1", "fmap2")
+MERGE_WRITES = TRACK_WRITES + ("eii", "ejj", "ekk")
 
 
 class DPVO:
@@ -137,10 +156,11 @@ class DPVO:
             max((cfg.REMOVAL_WINDOW + 4) * self.M, 256)))
 
         self._pending_perm = None
-        # the update program on the card: one CUDA graph per static key
-        # (bucket, run_ba, has_mm, k_cap, correlation version), captured
-        # the first time the key is reached; cuda_graphs=False runs it
-        # eagerly (on the CPU it always runs eagerly)
+        # the device programs on the card: one CUDA graph per static key
+        # (update: bucket, run_ba, has_mm, k_cap, correlation version;
+        # ("track", strategy, seam); ("merge",)), captured the first time
+        # the key is reached or by precompile(); cuda_graphs=False runs
+        # them eagerly (on the CPU they always run eagerly)
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._graphs: dict = {}
         self._graph_pool = None
@@ -414,17 +434,29 @@ class DPVO:
         else:
             self._tock(t_up, "update/step")
 
+    def _copy_in(self, dst, src):
+        """Write ``src`` (a numpy array or tensor of ``dst``'s shape) into the
+        device block ``dst`` with one copy: from host memory through a
+        pinned block of PyTorch's caching host allocator (which gives it
+        out again only after the copy has run), ``non_blocking``; a tensor
+        already on the card device to device."""
+        if not torch.is_tensor(src):
+            src = torch.from_numpy(np.ascontiguousarray(src))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"expected shape {tuple(dst.shape)}, got "
+                             f"{tuple(src.shape)}")
+        if self.device.type == "cuda" and src.device.type == "cpu":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
     def _stage_update(self, e_num, t0, t1, blob):
         """Write the update's inputs (``DeviceState.update_in``) with one
-        copy: on the card from a pinned block, ``non_blocking``."""
+        copy."""
         host = np.zeros(self.ds.update_in.shape[0], np.int32)
         host[:UPDATE_SCALARS] = (e_num, t0, t1)
         if blob is not None:
             host[UPDATE_SCALARS:] = blob
-        src = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            src = src.pin_memory()
-        self.ds.update_in.copy_(src, non_blocking=True)
+        self._copy_in(self.ds.update_in, host)
 
     def _update_program(self, bucket, run_ba, has_mm, k_cap):
         """The update as a function of the device state alone: reads
@@ -442,48 +474,137 @@ class DPVO:
         return program
 
     def _call_update_step(self, bucket, run_ba, has_mm, k_cap):
-        """Run the update program at ``bucket``: eagerly on the CPU (or
-        with ``cuda_graphs=False``), else by replaying its CUDA graph,
-        captured the first time its key is reached."""
+        """Run the update program at ``bucket`` (``_run``)."""
         self.buckets_seen[bucket] = self.buckets_seen.get(bucket, 0) + 1
-        program = self._update_program(bucket, run_ba, has_mm, k_cap)
+        return self._run(self._update_key(bucket, run_ba, has_mm, k_cap),
+                         self._update_program(bucket, run_ba, has_mm, k_cap),
+                         self._update_writes(bucket))
+
+    def _update_key(self, bucket, run_ba, has_mm, k_cap):
+        return (bucket, run_ba, has_mm, k_cap, corr_cuda.FUSED_VERSION)
+
+    def _update_writes(self, bucket):
+        ds = self.ds
+        return (ds.net[:bucket], ds.target[:bucket], ds.weight[:bucket],
+                ds.poses, ds.patches)
+
+    def _stage_track(self, image, intrinsics, n, fac, is_initialized):
+        """Write the tracking program's inputs: the frame into ``image_in``,
+        and ``n``, ``fac``, ``is_initialized``, the intrinsics at feature
+        resolution and (the parity seam) the scripted centroids into
+        ``track_in``; one copy each."""
+        centroids = (None if self.test_centroids is None
+                     else self.test_centroids(self.hs.counter))
+        self._copy_in(self.ds.track_in, track_inputs(
+            self.M, n, fac, is_initialized,
+            np.asarray(intrinsics, np.float32) / self.RES, centroids))
+        self._copy_in(self.ds.image_in, image)
+
+    def _track_program(self):
+        """-> (key, the tracking program of the staged inputs)."""
+        cfg = self.cfg
+        seam = self.test_centroids is not None
+        fixed = self.test_fixed_depth if seam else None
+        kw = dict(M=self.M, pmem=self.pmem, mem=self.mem,
+                  motion_damping=float(cfg.MOTION_DAMPING),
+                  strat=cfg.CENTROID_SEL_STRAT, staged_centroids=seam,
+                  fixed_depth=fixed)
+
+        @torch.no_grad()
+        def program():
+            kernels.track_frame_u8(self.ds, self.patchifier, self.gen, **kw)
+        return ("track", cfg.CENTROID_SEL_STRAT, seam, fixed), program
+
+    def _merge_program(self):
+        """-> (key, the keyframe merge of the staged (k, n))."""
+        shift_cap = self.cfg.kf_shift_cap()
+
+        def program():
+            return kernels.keyframe_merge(self.ds, M=self.M, pmem=self.pmem,
+                                          mem=self.mem, shift_cap=shift_cap)
+        return ("merge", shift_cap), program
+
+    def _writes(self, names):
+        return tuple(getattr(self.ds, k) for k in names)
+
+    def _run(self, key, program, written, draws=False):
+        """Run ``program``: eagerly on the CPU (or with ``cuda_graphs=
+        False``), else by replaying its CUDA graph, captured the first time
+        its key is reached.  -> the program's output."""
         if not self.cuda_graphs:
             return program()
-        key = (bucket, run_ba, has_mm, k_cap, corr_cuda.FUSED_VERSION)
         if key not in self._graphs:
-            self._graphs[key] = self._capture(key, program, bucket)
-        graph, mag, launches = self._graphs[key]
+            self._graphs[key] = self._capture(key, program, written, draws)
+        graph, out, launches = self._graphs[key]
         graph.replay()
         _cuda.replayed(launches)
-        return mag
+        return out
 
-    def _capture(self, key, program, bucket):
-        """Capture ``program`` as a CUDA graph: one eager warm-up on a side
-        stream (on a copy of the state it writes, put back after), then
-        the capture into the engine's graph pool, shared by all its graphs
-        (their replays never overlap).  A failed capture raises.  -> (graph,
-        its magnitude output, the launches one replay makes)."""
-        ds = self.ds
-        t_c = time.perf_counter()
-        written = (ds.net[:bucket], ds.target[:bucket], ds.weight[:bucket],
-                   ds.poses, ds.patches)
+    @contextlib.contextmanager
+    def _kept(self, written):
+        """Put ``written`` and the engine's generator back as they were
+        on leaving."""
         saved = [t.clone() for t in written]
-        here = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            program()
-        here.wait_stream(side)
-        for dst, src in zip(written, saved):
-            dst.copy_(src)
+        gen_state = self.gen.get_state()
+        try:
+            yield
+        finally:
+            for dst, src in zip(written, saved):
+                dst.copy_(src)
+            self.gen.set_state(gen_state)
+
+    def _warm(self, program, written):
+        """One eager run of ``program`` (on a side stream on the card) with
+        what it writes, ``written``, and the engine's generator put back
+        after (``_kept``)."""
+        with self._kept(written):
+            if self.device.type == "cuda":
+                here = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(here)
+                with torch.cuda.stream(side):
+                    program()
+                here.wait_stream(side)
+            else:
+                program()
+
+    def _replay_against_eager(self, key, program, written, draws=False):
+        """The checks' view of a graph: ``program`` through ``_run`` (its
+        graph replayed, captured first if need be) and then eagerly, each
+        from the state and generator state found here, which are put back
+        after each (``_kept``).  -> [(what it wrote and its output, cloned;
+        the generator state after) for the replay, for the eager run]."""
+        res = []
+        for graph in (True, False):
+            with self._kept(written):
+                out = (self._run(key, program, written, draws) if graph
+                       else program())
+                res.append(([t.clone() for t in written]
+                            + ([out.clone()] if out is not None else []),
+                            self.gen.get_state()))
+        return res
+
+    def _capture(self, key, program, written, draws=False):
+        """Capture ``program`` as a CUDA graph: the eager warm-up
+        (``_warm``), then the capture into the engine's graph pool, shared
+        by all its graphs (their replays never overlap).  A program that
+        ``draws`` from the engine's generator has it registered with its
+        graph: a replay draws what the eager program would draw from the
+        same generator state, and advances it as much.  A failed capture
+        raises.  -> (graph, the program's output, the
+        launches one replay makes)."""
+        t_c = time.perf_counter()
+        self._warm(program, written)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        if draws:
+            graph.register_generator_state(self.gen)
         with _cuda.captured_launches() as launches:
             with torch.cuda.graph(graph, pool=self._graph_pool):
-                mag = program()
+                out = program()
         self.graph_capture_ms[key] = (time.perf_counter() - t_c) * 1e3
-        return graph, mag, launches
+        return graph, out, launches
 
     def graph_pool_bytes(self):
         """Bytes the card reserves for the engine's graph pool (from the
@@ -494,6 +615,102 @@ class DPVO:
         return sum(s["total_size"] for s in segs
                    if tuple(s.get("segment_pool_id", ())) ==
                    tuple(self._graph_pool))
+
+    def _plan_buckets(self, max_edges=None, around=None, steps=2):
+        """``precompile``'s buckets, the JAX engine's plan: the ladder values
+        at or below ``_bucket_for(max_edges)``, else the ``steps`` ladder
+        places either side of ``_bucket_for(around or the live count)``;
+        plus the ladder's top (the cover of any edge count)."""
+        ladder = self._bucket_ladder()
+        if max_edges is not None:
+            top = self._bucket_for(max_edges)
+            buckets = [b for b in ladder if b <= top]
+        else:
+            c = ladder.index(self._bucket_for(
+                around if around is not None else max(self.hs.e_num, 1)))
+            buckets = ladder[max(c - steps, 0):c + steps + 1]
+        if ladder and ladder[-1] not in buckets:
+            buckets = buckets + [ladder[-1]]
+        return buckets
+
+    @torch.no_grad()
+    def precompile(self, max_edges=None, around=None, steps=2,
+                   verbose=False):
+        """Ready every program the steady loop can dispatch before it runs
+        (``DPVO.precompile`` of the JAX engine, its signature and bucket
+        plan, ``_plan_buckets``): the update at each planned bucket with
+        local BA (and without, under ``LOOP_CLOSURE``), its magnitude as
+        ``ASYNC_KEYFRAME`` sets it, at the default patch capacity and the
+        current correlation version; then the tracking program and the
+        keyframe merge.  On the card each key not yet captured is captured
+        now, the largest bucket first, so that the shared graph pool is
+        sized by the first capture; with ``cuda_graphs=False`` and on the
+        CPU each program runs its eager warm-up alone (``_warm``) and
+        nothing is captured.  Under loop closure an update whose live edges
+        leave from more frames raises its patch capacity
+        (``_update_k_cap``): those keys are still captured at first reach.
+
+        A graph holds the addresses of the state it was captured on, so the
+        programs run on the engine's own state, with a well-posed slot 0
+        (identity pose, unit intrinsics and depths: the masked rows of an
+        empty bucket read it) and staged inputs of their own; the state, the
+        staged inputs and the generator are put back bitwise as they were.
+        Call it again with ``around`` after warm frames to cover drift past
+        a bucket boundary.  -> dict: ``seconds``, ``ms`` (capture or warm-up
+        ms of each key readied now), ``pool_bytes`` (``graph_pool_bytes``
+        after)."""
+        cfg, ds = self.cfg, self.ds
+        t_all = time.perf_counter()
+        run_bas = (True, False) if cfg.LOOP_CLOSURE else (True,)
+        has_mm = bool(cfg.ASYNC_KEYFRAME)
+        buckets = sorted(self._plan_buckets(max_edges, around, steps),
+                         reverse=True)
+        saved = {k: v.clone() for k, v in vars(ds).items()}
+        gen_state = self.gen.get_state()
+        ms = {}
+        try:
+            ds.poses[0] = lie.se3_identity(device=self.device)
+            ds.intrinsics[0] = 1.0
+            ds.patches[:self.M, 2] = 1.0
+            self._stage_update(0, 1, 2, np.zeros(8 * MM_CAP, np.int32)
+                               if has_mm else None)
+            plan = [(self._update_key(b, rb, has_mm, self.k_cap),
+                     self._update_program(b, rb, has_mm, self.k_cap),
+                     self._update_writes(b), False)
+                    for b in buckets for rb in run_bas]
+            # staged as a first frame
+            self._stage_track(np.zeros(tuple(ds.image_in.shape), np.uint8),
+                              np.full(4, self.RES, np.float32), 0, 1.0,
+                              False)
+            plan.append((*self._track_program(),
+                         self._writes(TRACK_WRITES), True))
+            plan.append((*self._merge_program(),
+                         self._writes(MERGE_WRITES), False))
+            self._copy_in(ds.merge_in, np.array([1, 2], np.int32))
+            for key, program, written, draws in plan:
+                if key in self._graphs:
+                    continue
+                t0 = time.perf_counter()
+                if self.cuda_graphs:
+                    self._graphs[key] = self._capture(key, program, written,
+                                                      draws)
+                else:
+                    self._warm(program, written)
+                ms[key] = (time.perf_counter() - t0) * 1e3
+                if verbose:
+                    print(f"precompile {key}: {ms[key]:.1f} ms", flush=True)
+        finally:
+            for k, v in saved.items():
+                getattr(ds, k).copy_(v)
+            self.gen.set_state(gen_state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out = dict(seconds=time.perf_counter() - t_all, ms=ms,
+                   pool_bytes=self.graph_pool_bytes())
+        if verbose:
+            print(f"precompile: {len(ms)} keys in {out['seconds']:.2f} s, "
+                  f"pool bytes {out['pool_bytes']}", flush=True)
+        return out
 
     # --- core steps --------------------------------------------------------
 
@@ -648,9 +865,6 @@ class DPVO:
         if self.n - 1 - k > cfg.kf_shift_cap():
             raise RuntimeError(f"keyframe merge shift {self.n - 1 - k} "
                                f"exceeds kf_shift_cap {cfg.kf_shift_cap()}")
-        hs.delta[int(hs.tstamps[k])] = (int(hs.tstamps[k - 1]),
-                                        kernels.relative_pose(ds.poses, k))
-
         e = hs.e_num
         self.remove_factors((hs.ii[:e] == k) | (hs.jj[:e] == k))
 
@@ -660,10 +874,13 @@ class DPVO:
         hs.kk[:e][mask_i] -= self.M
         hs.ii[:e][mask_i] -= 1
         hs.jj[:e][hs.jj[:e] > k] -= 1
-        # elementwise, so it commutes with the deferred row permute
-        kernels.shift_edge_indices(ds, k, self.M)
-        kernels.compact_frames(ds, k, self.n, M=self.M, pmem=self.pmem,
-                               mem=self.mem, shift_cap=cfg.kf_shift_cap())
+        # the device program: the relative pose, the device index shift
+        # (elementwise, so it commutes with the deferred row permute) and
+        # the frame compaction; a graph's output is overwritten by its next
+        # replay
+        self._copy_in(ds.merge_in, np.array([k, self.n], np.int32))
+        dP = self._run(*self._merge_program(), self._writes(MERGE_WRITES))
+        hs.delta[int(hs.tstamps[k])] = (int(hs.tstamps[k - 1]), dP.clone())
 
         hs.tstamps[k:self.n - 1] = hs.tstamps[k + 1:self.n].copy()
         self.n -= 1
@@ -717,7 +934,7 @@ class DPVO:
     def __call__(self, tstamp, image, intrinsics):
         """Track one frame.  image: (H, W, 3) uint8 BGR (numpy or tensor);
         intrinsics: (4,) at full image resolution."""
-        cfg, hs, ds = self.cfg, self.hs, self.ds
+        cfg, hs = self.cfg, self.hs
         if self.long_term_lc is not None:
             self.long_term_lc(image.cpu().numpy() if torch.is_tensor(image)
                               else np.asarray(image), self.n)
@@ -738,24 +955,10 @@ class DPVO:
         *_, a, b, c = [1] * 3 + hs.tlist
         fac = (c - b) / (b - a) if (b - a) != 0 else 1.0
 
-        img = torch.as_tensor(image).to(self.device)
-        intr = self._dev(np.asarray(intrinsics, np.float32)) / self.RES
-        kw = dict(M=self.M, pmem=self.pmem, mem=self.mem,
-                  motion_damping=float(cfg.MOTION_DAMPING))
         t_tr = self._tick()
-        if self.test_centroids is None:
-            kernels.track_frame_u8(
-                ds, self.patchifier, img, intr, self.n, fac,
-                self.is_initialized, self.gen,
-                strat=cfg.CENTROID_SEL_STRAT, **kw)
-        else:
-            # parity test seam: scripted centroids + constant depth init
-            coords = self._dev(np.asarray(self.test_centroids(hs.counter),
-                                          np.float32))
-            kernels.track_frame(
-                ds, self.patchifier, normalize_images(img), coords, intr,
-                self.n, fac, self.is_initialized, self.gen,
-                fixed_depth=self.test_fixed_depth, **kw)
+        self._stage_track(image, intrinsics, self.n, fac, self.is_initialized)
+        key, program = self._track_program()
+        self._run(key, program, self._writes(TRACK_WRITES), draws=True)
         self._tock(t_tr, "track_frame")
 
         hs.counter += 1

@@ -3,11 +3,14 @@
 Counterpart of ``dpvo_tpu/engine/kernels.py``.  Each function is one step
 the host engine (``engine.dpvo.DPVO``) runs on the device state; where the
 JAX programs returned new arrays, these update ``DeviceState`` tensors in
-place.  The update step runs at a static edge bucket with the rows past the
-live count masked, so the engine can replay it as a CUDA graph.
+place.  The tracking program, the update step (at a static edge bucket
+with the rows past the live count masked) and the keyframe merge read
+their dynamic inputs as device tensors and branch on none on the host, so
+the engine can replay each as a CUDA graph.
 
-- ``track_frame_u8`` / ``track_frame`` — Patchifier forward on one frame,
-  ring writes, damped-linear motion model and depth init;
+- ``track_frame_u8`` / ``track_frame`` / ``write_frame`` — Patchifier
+  forward on one frame, ring writes, damped-linear motion model and depth
+  init, at fixed shapes on staged device scalars;
 - ``update_step_dev`` — edge metadata, reprojection, the correlation (the
   fused correlation + corr-encoder kernel, or at ``DPVO_CORR_VERSION`` other
   than 13 the two-level correlation kernel in that version's layout), the
@@ -16,9 +19,9 @@ live count masked, so the engine can replay it as a CUDA graph.
 - ``motion_probe`` — median flow delta for the init motion check;
 - ``flowmag_pair`` / ``flowmag_two`` / ``flowmag_two_blob`` (with
   ``split_blob``) — keyframe motion magnitude over fixed-capacity edges;
-- ``compact_frames``, ``append_edges``, ``permute_edges``,
-  ``shift_edge_indices``, ``relative_pose`` — keyframe merge and edge
-  table bookkeeping;
+- ``keyframe_merge`` (``relative_pose``, ``shift_edge_indices``,
+  ``compact_frames`` on staged device scalars), ``append_edges``,
+  ``permute_edges`` — keyframe merge and edge table bookkeeping;
 - ``store_inactive``, ``concat_edge_tw``, ``normalize_scene`` — the
   inactive edge store and the scene rescale of global BA (loop closure);
 - ``point_cloud`` — world points at the patch centres, for the exports.
@@ -33,7 +36,7 @@ from ..models.vonet import (Patchifier, image_gradient, normalize_images,
 from ..ops import agg_cuda, ba, graph, lie, projective as pops, scatter
 from ..ops import corr as corr_ops, corr_cuda
 from ..ops.corr_cuda import PAD
-from .state import DeviceState
+from .state import TRACK_SCALARS, DeviceState
 
 
 # ---------------------------------------------------------------------------
@@ -53,70 +56,103 @@ def process_frame(patchifier: Patchifier, image, coords):
     return fmap1, fmap2, gmap[0], imap[0], patches[0].float(), clr_u8
 
 
+def _rows(t, idx):
+    """Rows ``idx`` (integer device tensor, any shape) of ``t``: a gather,
+    never a host read of the index."""
+    return t.index_select(0, idx.reshape(-1))
+
+
 def write_frame(ds: DeviceState, fmap1, fmap2, gmap, imap, patches, clr,
-                intrinsics, n, fac, is_initialized, gen, M, pmem, mem,
-                motion_damping, fixed_depth=None):
-    """All state writes for a new frame at slot ``n``."""
-    P = patches.shape[-1]
+                intrinsics, n, fac, is_initialized, rand_depth, M, pmem, mem,
+                motion_damping):
+    """All state writes for a new frame at slot ``n``, at fixed shapes.
+
+    ``n`` (integer), ``fac`` (float32, the motion model's timestamp
+    ratio) and ``is_initialized`` (bool) are 0-dim device tensors: both
+    branches of the motion model and of the depth init are computed and
+    one is taken by a where, and every write goes to rows computed on the
+    device, so the program reads no value on the host (``write_frame`` of
+    the JAX package).  ``rand_depth`` (M, 1, 1) is the pre-init depth."""
+    dev = ds.poses.device
     poses = ds.poses
+    n1 = n.reshape(1)
 
-    # motion model
-    if n > 1:
-        P1, P2 = poses[n - 1], poses[n - 2]
-        xi = motion_damping * fac * lie.se3_log(
-            lie.se3_mul(P1, lie.se3_inv(P2)))
-        poses[n] = lie.se3_mul(lie.se3_exp(xi), P1)
-    elif n == 1:
-        poses[1] = poses[0]
+    # motion model: damped linear from the two previous poses (n > 1),
+    # a copy of the previous one (n == 1), frame 0 as it is (n == 0)
+    P1 = _rows(poses, (n1 - 1).clamp(min=0))[0]
+    P2 = _rows(poses, (n1 - 2).clamp(min=0))[0]
+    xi = motion_damping * fac * lie.se3_log(
+        lie.se3_mul(P1, lie.se3_inv(P2)))
+    pred = lie.se3_mul(lie.se3_exp(xi), P1)
+    new_pose = torch.where(n > 1, pred, P1)
+    new_pose = torch.where(n > 0, new_pose, poses[0])
+    poses.index_copy_(0, n1, new_pose[None])
 
-    # depth init: torch.median of a flattened even-length tensor is the
-    # LOWER middle order statistic
-    if is_initialized:
-        start = max(n - 3, 0) * M
-        recent = ds.patches[start:start + 3 * M, 2].reshape(-1)
-        depth = torch.sort(recent).values[(recent.numel() - 1) // 2]
-    elif fixed_depth is not None:
-        depth = torch.tensor(fixed_depth, device=poses.device)
-    else:
-        depth = torch.rand((M, 1, 1), generator=gen, device=poses.device)
+    # depth init: the median of the last 3 frames' depths once initialized
+    # (torch.median of a flattened even-length tensor is the LOWER middle
+    # order statistic), else ``rand_depth``
+    start = (n1 - 3).clamp(min=0) * M
+    recent = _rows(ds.patches, start + torch.arange(3 * M, device=dev))
+    flat = torch.sort(recent[:, 2].reshape(-1)).values
+    med = flat[(flat.numel() - 1) // 2]
+    depth = torch.where(is_initialized, med, rand_depth)
     patches = patches.clone()
     patches[:, 2] = depth
 
-    ds.patches[n * M:(n + 1) * M] = patches
-    ds.intrinsics[n] = intrinsics
-    ds.colors[n] = clr
-    slot_p = (n % pmem) * M
-    ds.imap[slot_p:slot_p + M] = imap.to(ds.imap.dtype)
-    ds.gmap[slot_p:slot_p + M] = gmap.to(ds.gmap.dtype)
+    rows = n1 * M + torch.arange(M, device=dev)
+    ds.patches.index_copy_(0, rows, patches)
+    ds.intrinsics.index_copy_(0, n1, intrinsics[None])
+    ds.colors.index_copy_(0, n1, clr[None])
+    slot_p = (n1 % pmem) * M + torch.arange(M, device=dev)
+    ds.imap.index_copy_(0, slot_p, imap.to(ds.imap.dtype))
+    ds.gmap.index_copy_(0, slot_p, gmap.to(ds.gmap.dtype))
     # the rings' zero border is never written: only the interior changes
-    h, w = fmap1.shape[:2]
-    ds.fmap1[n % mem, PAD:PAD + h, PAD:PAD + w] = fmap1.to(ds.fmap1.dtype)
-    h, w = fmap2.shape[:2]
-    ds.fmap2[n % mem, PAD:PAD + h, PAD:PAD + w] = fmap2.to(ds.fmap2.dtype)
+    for ring, fmap in ((ds.fmap1, fmap1), (ds.fmap2, fmap2)):
+        h, w = fmap.shape[:2]
+        ring[:, PAD:PAD + h, PAD:PAD + w].index_copy_(
+            0, n1 % mem, fmap[None].to(ring.dtype))
 
 
 def track_frame(ds, patchifier, image, coords, intrinsics, n, fac,
-                is_initialized, gen, M, pmem, mem, motion_damping,
-                fixed_depth=None):
+                is_initialized, rand_depth, M, pmem, mem, motion_damping):
     """process_frame + write_frame on a normalized image and given
     centroids."""
     out = process_frame(patchifier, image, coords)
-    write_frame(ds, *out, intrinsics, n, fac, is_initialized, gen, M=M,
-                pmem=pmem, mem=mem, motion_damping=motion_damping,
-                fixed_depth=fixed_depth)
+    write_frame(ds, *out, intrinsics, n, fac, is_initialized, rand_depth,
+                M=M, pmem=pmem, mem=mem, motion_damping=motion_damping)
 
 
-def track_frame_u8(ds, patchifier, image_u8, intrinsics, n, fac,
-                   is_initialized, gen, M, pmem, mem, motion_damping,
-                   strat="RANDOM"):
-    """The whole per-frame pipeline from a uint8 (H, W, 3) image:
-    normalization, centroid selection, Patchifier forward, state writes."""
-    img = normalize_images(image_u8)
+def track_frame_u8(ds: DeviceState, patchifier, gen, M, pmem, mem,
+                   motion_damping, strat="RANDOM", staged_centroids=False,
+                   fixed_depth=None):
+    """The whole per-frame pipeline as one fixed-shape program of the staged
+    inputs (``ds.image_in``, ``ds.track_in``): uint8 normalization,
+    centroid selection, Patchifier forward, state writes.
+
+    Every frame draws the centroids and then the pre-init depth from
+    ``gen``, whatever the branch, as the JAX program always splits its key
+    into both.  The parity seam: with ``staged_centroids`` the centroids
+    are the staged (M, 2) block instead, and with ``fixed_depth`` the
+    pre-init depth is that constant; neither then draws."""
+    dev = ds.poses.device
+    scal = ds.track_in[:TRACK_SCALARS]
+    n = scal[0].long()
+    fac = scal[1]
+    is_initialized = scal[2] > 0.5
+    intrinsics = scal[3:TRACK_SCALARS]
+    img = normalize_images(ds.image_in)
     h, w = img.shape[0] // 4, img.shape[1] // 4
-    grad = image_gradient(img[None]) if strat == "GRADIENT_BIAS" else None
-    coords = select_centroids(gen, strat, 1, h, w, M, gradient=grad)[0]
+    if staged_centroids:
+        coords = ds.track_in[TRACK_SCALARS:].view(M, 2)
+    else:
+        grad = image_gradient(img[None]) if strat == "GRADIENT_BIAS" else None
+        coords = select_centroids(gen, strat, 1, h, w, M, gradient=grad)[0]
+    if fixed_depth is None:
+        rand_depth = torch.rand((M, 1, 1), generator=gen, device=dev)
+    else:
+        rand_depth = torch.full((M, 1, 1), float(fixed_depth), device=dev)
     track_frame(ds, patchifier, img, coords, intrinsics, n, fac,
-                is_initialized, gen, M=M, pmem=pmem, mem=mem,
+                is_initialized, rand_depth, M=M, pmem=pmem, mem=mem,
                 motion_damping=motion_damping)
 
 
@@ -291,23 +327,51 @@ def flowmag_two_blob(poses, patches, intrinsics, blob, cap):
     return flowmag_two(poses, patches, intrinsics, p[:4], p[4:])
 
 
-def compact_frames(ds: DeviceState, k, n, M, pmem, mem, shift_cap):
-    """Remove keyframe slot ``k``: shift frames (k, N) down by one, and the
-    ring slots i % ring <- (i+1) % ring for i in [k, n-1) (at most
-    ``shift_cap`` of them), copied in ascending order so each slot is read
-    before it is overwritten."""
-    N = ds.poses.shape[0]
-    ds.poses[k:N - 1] = ds.poses[k + 1:N].clone()
-    ds.intrinsics[k:N - 1] = ds.intrinsics[k + 1:N].clone()
-    ds.colors[k:N - 1] = ds.colors[k + 1:N].clone()
-    ds.patches[k * M:(N - 1) * M] = ds.patches[(k + 1) * M:N * M].clone()
+def _words(t):
+    """``t`` (contiguous) as rows of 64-bit words where its rows' bytes
+    allow, else as flat rows: the merge only moves bytes, and the index
+    kernels move one element per thread, so wider elements move faster."""
+    flat = t.view(t.shape[0], -1)
+    if flat.shape[1] * flat.element_size() % 8:
+        return flat
+    return flat.view(torch.int64)
 
-    for i in range(k, min(k + shift_cap, n - 1)):
-        dp, sp = (i % pmem) * M, ((i + 1) % pmem) * M
-        ds.imap[dp:dp + M] = ds.imap[sp:sp + M]
-        ds.gmap[dp:dp + M] = ds.gmap[sp:sp + M]
-        ds.fmap1[i % mem] = ds.fmap1[(i + 1) % mem]
-        ds.fmap2[i % mem] = ds.fmap2[(i + 1) % mem]
+
+def _shift_ring(buf, k, n, slots, shift_cap, rows):
+    """Ring slots i % slots <- (i+1) % slots for i in [k, n-1), at most
+    ``shift_cap`` of them, each slot ``rows`` rows of ``buf``: one gather of
+    the ``shift_cap`` source slots (a slot past n-1 reads itself), then one
+    scatter.  Every slot is read before any is written, which is what
+    copying them one by one in ascending order gives, as long as the
+    shifted range does not wrap onto itself (``shift_cap < slots``)."""
+    dev = buf.device
+    i = k + torch.arange(shift_cap, device=dev)
+    dst = i % slots
+    src = torch.where(i < n - 1, (i + 1) % slots, dst)
+    r = torch.arange(rows, device=dev)
+    buf = _words(buf)
+    buf.index_copy_(0, (dst[:, None] * rows + r).reshape(-1),
+                    _rows(buf, src[:, None] * rows + r))
+
+
+def compact_frames(ds: DeviceState, k, n, M, pmem, mem, shift_cap):
+    """Remove keyframe slot ``k``: shift frames (k, N) down by one (an index
+    gather of the frame tables, as the JAX program's), and the ring slots
+    i <- i+1 for i in [k, n-1) (``_shift_ring``: the ``shift_cap`` slots
+    that can move, not the whole ring).  ``k``, ``n`` are 0-dim integer
+    device tensors; ``M``, ``pmem``, ``mem``, ``shift_cap`` static."""
+    if shift_cap >= min(pmem, mem):
+        raise ValueError(f"kf_shift_cap {shift_cap} must be below the rings' "
+                         f"slots (pmem {pmem}, mem {mem})")
+    N = ds.poses.shape[0]
+    idx = torch.arange(N, device=ds.poses.device)
+    src = torch.where(idx >= k, (idx + 1).clamp(max=N - 1), idx)
+    for t in (ds.poses, ds.intrinsics, ds.colors, ds.patches.view(N, -1)):
+        t = _words(t)
+        t.copy_(_rows(t, src))
+    for buf, slots, rows in ((ds.imap, pmem, M), (ds.gmap, pmem, M),
+                             (ds.fmap1, mem, 1), (ds.fmap2, mem, 1)):
+        _shift_ring(buf, k, n, slots, shift_cap, rows)
 
 
 def append_edges(ds: DeviceState, kk_new, jj_new, s, M):
@@ -334,8 +398,8 @@ def permute_edges(ds: DeviceState, perm, zero_from):
 
 
 def shift_edge_indices(ds: DeviceState, k, M):
-    """Keyframe-merge index shift: frames above the removed slot move
-    down."""
+    """Keyframe-merge index shift: frames above the removed slot ``k`` (an
+    int or 0-dim integer device tensor) move down."""
     mi = ds.eii > k
     ds.ekk.sub_(mi.int() * M)
     ds.eii.sub_(mi.int())
@@ -343,8 +407,22 @@ def shift_edge_indices(ds: DeviceState, k, M):
 
 
 def relative_pose(poses, k):
-    """dP = poses[k] * poses[k-1]^-1."""
-    return lie.se3_mul(poses[k], lie.se3_inv(poses[max(k - 1, 0)]))
+    """dP = poses[k] * poses[k-1]^-1, ``k`` >= 1 a 0-dim integer device
+    tensor."""
+    k1 = k.reshape(1)
+    return lie.se3_mul(_rows(poses, k1),
+                       lie.se3_inv(_rows(poses, (k1 - 1).clamp(min=0))))[0]
+
+
+def keyframe_merge(ds: DeviceState, M, pmem, mem, shift_cap):
+    """One keyframe merge as one fixed-shape program of the staged
+    ``ds.merge_in`` = (k, n): ``relative_pose``, ``shift_edge_indices`` and
+    ``compact_frames``.  -> the removed frame's relative pose (7,)."""
+    k, n = ds.merge_in[0].long(), ds.merge_in[1].long()
+    dP = relative_pose(ds.poses, k)
+    shift_edge_indices(ds, k, M)
+    compact_frames(ds, k, n, M=M, pmem=pmem, mem=mem, shift_cap=shift_cap)
+    return dP
 
 
 def store_inactive(ds: DeviceState, idx, dest):

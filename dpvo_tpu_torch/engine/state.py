@@ -14,8 +14,17 @@ rebuilt arrays):
   weight rows of retired edges, the first ``n_inac`` live;
 - the update program's inputs, one int32 tensor the host refreshes with
   one copy per update: ``e_num``, ``t0``, ``t1``, then the keyframe
-  candidate's packed edges (``UPDATE_SCALARS`` + 8 * ``MM_CAP``).  A CUDA
-  graph of the update reads them at this fixed address.
+  candidate's packed edges (``UPDATE_SCALARS`` + 8 * ``MM_CAP``);
+- the tracking program's inputs: the frame (``image_in``, uint8) and one
+  float32 block (``track_in``): ``n``, the motion model's timestamp ratio
+  ``fac``, ``is_initialized`` (0 or 1), the frame's intrinsics at feature
+  resolution, then the parity seam's (M, 2) scripted centroids
+  (``TRACK_SCALARS`` + 2 * M);
+- the keyframe merge's inputs (``merge_in``, int32): the removed slot
+  ``k`` and the keyframe count ``n``.
+
+Each input block is refreshed by one copy before its program runs; a CUDA
+graph of the program reads it at this fixed address.
 
 The host owns the edge bookkeeping (numpy), the inactive edges' indices
 included.
@@ -34,6 +43,20 @@ from ..ops.corr_cuda import padded_hw
 
 MM_CAP = 256          # edges a keyframe motionmag direction can hold
 UPDATE_SCALARS = 3    # e_num, t0, t1 ahead of the packed candidate edges
+TRACK_SCALARS = 7     # n, fac, is_initialized, intrinsics ahead of centroids
+
+
+def track_inputs(M, n, fac, is_initialized, intrinsics, centroids=None):
+    """The tracking program's staged block (``DeviceState.track_in``) on
+    the host: ``n``, ``fac``, ``is_initialized``, the intrinsics at feature
+    resolution, then the (M, 2) scripted centroids of the parity seam
+    (zeros without them).  -> float32 array of TRACK_SCALARS + 2 * M."""
+    block = np.zeros(TRACK_SCALARS + 2 * M, np.float32)
+    block[:TRACK_SCALARS] = (n, fac, is_initialized, *intrinsics)
+    if centroids is not None:
+        block[TRACK_SCALARS:] = np.asarray(centroids,
+                                           np.float32).reshape(-1)
+    return block
 
 
 @dataclass
@@ -59,6 +82,9 @@ class DeviceState:
     weight_inac: Any  # (EDGE_CAPACITY_INAC, 2) f32
 
     update_in: Any    # (UPDATE_SCALARS + 8 * MM_CAP,) i32 update inputs
+    image_in: Any     # (ht, wd, 3) u8 — the frame to track
+    track_in: Any     # (TRACK_SCALARS + 2 * M,) f32 tracking inputs
+    merge_in: Any     # (2,) i32 — k, n of a keyframe merge
 
 
 @dataclass
@@ -112,6 +138,9 @@ def allocate(cfg: VOConfig, ht: int, wd: int, P: int, pmem: int, mem: int,
         target_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
         weight_inac=z(cfg.EDGE_CAPACITY_INAC, 2),
         update_in=z(UPDATE_SCALARS + 8 * MM_CAP, dtype=torch.int32),
+        image_in=z(ht, wd, 3, dtype=torch.uint8),
+        track_in=z(TRACK_SCALARS + 2 * M),
+        merge_in=z(2, dtype=torch.int32),
     )
 
 

@@ -8,13 +8,14 @@ The port's counterpart of ``bench_profile.py``: its engine (480x640,
 seeded random weights, motion probe forced) tracks 26 frames of a random
 texture rolling 4 px per frame, then each call runs alone on that state,
 timed on the host clock around the call and a device synchronise (median
-of 10, ``quick`` 3): ``track_frame_u8``; ``update_step`` with the kernels,
+of 10, ``quick`` 3): ``track_frame_u8`` (the engine's tracking program,
+run eagerly on its staged inputs); ``update_step`` with the kernels,
 with the plain correlation swapped in (``chip_smoke.plain_correlation``)
 and without BA; ``motionmag`` of the keyframe candidate's edges, cold (its
 first call) and steady; ``permute_edges`` (identity, the live rows) and
-``compact_frames``.  Each line gives the K2, K3 and K4 launches of its
-timed calls, per call; the header gives ``n`` and ``e_num``.  Needs a CUDA
-card.
+``keyframe_merge`` (the engine's merge program, eagerly).  Each line gives
+the K2, K3 and K4 launches of its timed calls, per call; the header gives
+``n`` and ``e_num``.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -94,18 +95,14 @@ def profile(dev, reps=10):
     torch.cuda.synchronize()
     print(f"[bench_profile] steady state after {N_STEADY} frames: "
           f"n={slam.n} e_num={hs.e_num}", flush=True)
-    img = torch.as_tensor(frame(N_STEADY)).to(dev)
-    intr_d = torch.as_tensor(intr, dtype=torch.float32, device=dev) / 4
     t0, t1 = max(slam.n - cfg.OPTIMIZATION_WINDOW, 1), slam.n
     step = dict(M=slam.M, pmem=slam.pmem, mem=slam.mem, n_cap=slam.n_cap,
                 k_cap=slam.k_cap, iterations=2)
     out = {}
     with torch.no_grad():
-        out["track_frame_u8"] = wall("track_frame_u8", lambda: (
-            kernels.track_frame_u8(ds, slam.patchifier, img, intr_d, slam.n,
-                                   1.0, True, slam.gen, M=slam.M,
-                                   pmem=slam.pmem, mem=slam.mem,
-                                   motion_damping=0.5)), reps)
+        slam._stage_track(frame(N_STEADY), intr, slam.n, 1.0, True)
+        key, program = slam._track_program()
+        out["track_frame_u8"] = wall("track_frame_u8 (eager)", program, reps)
         arms = (("update_step kernels", contextlib.nullcontext, True),
                 ("update_step plain correlation", plain_correlation, True),
                 ("update_step no BA", contextlib.nullcontext, False))
@@ -129,9 +126,9 @@ def profile(dev, reps=10):
             f"permute_edges (identity, {hs.e_num} rows)",
             lambda: kernels.permute_edges(ds, perm, hs.e_num), reps)
         k = slam.n - cfg.KEYFRAME_INDEX
-        out["compact_frames"] = wall(f"compact_frames (k={k})", lambda: (
-            kernels.compact_frames(ds, k, slam.n, slam.M, slam.pmem,
-                                   slam.mem, cfg.kf_shift_cap())), reps)
+        slam._copy_in(ds.merge_in, np.array([k, slam.n], np.int32))
+        out["keyframe_merge"] = wall(f"keyframe_merge (eager, k={k})",
+                                     slam._merge_program()[1], reps)
     out["motionmag_cold"] = (cold, {})
     return out
 

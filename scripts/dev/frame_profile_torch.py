@@ -15,14 +15,16 @@ Where a JAX program ran at ``rows`` (its bucket), the port's runs at the
 live count, as its engine does; ``permute_edges`` moves ``rows`` rows.
 
 Timed, each with ``microbench_torch.timed`` (device ms per call and its
-timer): ``track_frame_u8``; ``append_edges`` (one frame's 2400 edges);
-``permute_edges``; ``relative_pose``, ``shift_edge_indices`` and
-``compact_frames`` (a keyframe merge); ``ba_iterative`` (2 iterations,
-K4); the reprojection with the two-level correlation (``transform`` and
-K2); the update net with its edge metadata (K3); the edge metadata alone;
+timer): ``track_frame_u8`` (on its staged inputs, as the engine replays
+it); ``append_edges`` (one frame's 2400 edges); ``permute_edges``;
+``keyframe_merge`` (``relative_pose``, ``shift_edge_indices`` and
+``compact_frames``, the engine's one merge program); ``ba_iterative`` (2
+iterations, K4); the reprojection with the two-level correlation
+(``transform`` and K2); the update net with its edge metadata (K3); the
+edge metadata alone;
 and, as ``frame_profile.py`` times ``update_step_dev``, the whole
 ``update_step`` with the kernels, without BA and with the plain
-correlation swapped in.  The per-frame sum (the merge programs once a
+correlation swapped in.  The per-frame sum (the merge program once a
 frame where ``live`` is the merge regime's) is printed beside the device
 busy ms/frame of ``bench_torch.run_regime``'s matching regime over 5
 profiled frames (``chip_smoke.py``'s ``[profile]`` reading).  Needs a CUDA
@@ -168,6 +170,7 @@ def profile(dev, rows=16384, live=13824, window=12, reps=10, windows=5,
     import torch
     from chip_smoke import plain_correlation
     from dpvo_tpu_torch.engine import kernels
+    from dpvo_tpu_torch.engine.state import track_inputs
     from dpvo_tpu_torch.ops import ba
     cfg, ds, patchifier, update_mod, n_now = bench_state(dev, rows, window)
     regime = "retain" if live > RETAIN_LIVE else "merge"
@@ -179,7 +182,7 @@ def profile(dev, rows=16384, live=13824, window=12, reps=10, windows=5,
     gen = torch.Generator(device=dev).manual_seed(1)
     img = torch.randint(0, 255, (HT, WD, 3), dtype=torch.uint8, device=dev,
                         generator=gen)
-    intr = torch.tensor([WD / 8, WD / 8, WD / 8, HT / 8], device=dev)
+    intr = [WD / 8, WD / 8, WD / 8, HT / 8]
     per_frame = M * (2 * cfg.PATCH_LIFETIME - 1)
     kk_new = torch.arange(per_frame, dtype=torch.int32, device=dev) % (
         M * 3) + (n_now - 3) * M
@@ -191,10 +194,12 @@ def profile(dev, rows=16384, live=13824, window=12, reps=10, windows=5,
     kw = dict(reps=reps, windows=windows)
     out = {}
     with torch.no_grad():
+        ds.image_in.copy_(img)
+        ds.track_in.copy_(torch.from_numpy(
+            track_inputs(M, n_now, 1.0, True, intr)))
         out["track_frame_u8"] = mb.timed(
-            "track_frame_u8", kernels.track_frame_u8, ds, patchifier, img,
-            intr, n_now, 1.0, True, gen, M, MEM, MEM, 0.5, generators=(gen,),
-            **kw)
+            "track_frame_u8", kernels.track_frame_u8, ds, patchifier, gen, M,
+            MEM, MEM, 0.5, generators=(gen,), **kw)
         out["append_edges"] = mb.timed(
             f"append_edges ({per_frame} edges)", kernels.append_edges, ds,
             kk_new, jj_new, live, M, **kw)
@@ -227,18 +232,14 @@ def profile(dev, rows=16384, live=13824, window=12, reps=10, windows=5,
             out["permute_edges"] = mb.timed(
                 f"permute_edges rows={rows}", kernels.permute_edges, ds,
                 perm, live, **kw)
-            out["relative_pose"] = mb.timed(
-                "relative_pose", kernels.relative_pose, ds.poses, k, **kw)
-            out["shift_edge_indices"] = mb.timed(
-                "shift_edge_indices", kernels.shift_edge_indices, ds, k, M,
-                **kw)
-            out["compact_frames"] = mb.timed(
-                "compact_frames", kernels.compact_frames, ds, k, n_now, M,
-                MEM, MEM, cfg.kf_shift_cap(), **kw)
+            ds.merge_in.copy_(torch.tensor([k, n_now]))
+            out["keyframe_merge"] = mb.timed(
+                "keyframe_merge", kernels.keyframe_merge, ds, M, MEM, MEM,
+                cfg.kf_shift_cap(), **kw)
     frame = ["track_frame_u8", "append_edges", "permute_edges",
              "reproject_corr", "update_net", "ba_iterative"]
     if regime == "merge":
-        frame += ["relative_pose", "shift_edge_indices", "compact_frames"]
+        frame += ["keyframe_merge"]
     total = sum(out[p].device_ms for p in frame)
     busy, wall, n_kern = device_busy(dev, regime, n_bench)
     print(f"[frame_profile] per-frame sum of device ms "

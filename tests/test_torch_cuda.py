@@ -32,7 +32,11 @@ partial.  The classic loop-closure backend's device work: PGO on a drifted
 of ``long_term.triangulate`` at 1024 keypoints with K4 launched, points
 within 1e-4 of the CPU's.  The engine's update program replayed as a CUDA
 graph equals the same program run eagerly, bitwise, and each replay counts
-its kernels' launches.
+its kernels' launches; so do its tracking program (from the same generator
+state, which the replay advances as far) and its keyframe merge; and
+``DPVO.precompile`` leaves the engine's state and generator bitwise as it
+found them, before the first frame and mid-drive, and the drive it
+precompiled for bitwise the same as one without.
 """
 import numpy as np
 import pytest
@@ -432,6 +436,91 @@ def test_update_graph_replay_vs_eager(dev):
         outs.append([getattr(slam.ds, k).clone() for k in names]
                     + [mag.clone()])
     for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _small_lagged(dev, frames=12, precompile=False):
+    """The small lagged engine of test_update_graph_replay_vs_eager (bf16,
+    bucket 512, never merging) after ``frames`` frames; with
+    ``precompile`` readied before the first frame and after frame 6, each
+    call checked to leave the state and the generator as they were."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=True, EDGE_CAPACITY=512, BA_WINDOW_CAP=8,
+                   KEYFRAME_THRESH=0.0, ASYNC_KEYFRAME=True,
+                   ASYNC_KEYFRAME_LAG=3, ASYNC_KEYFRAME_BATCH=2)
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    slam = DPVO(cfg, ht=96, wd=128, device=dev, seed=2)
+    slam.motion_probe = lambda: 100.0
+
+    def snapshot():
+        return ([v.clone() for v in vars(slam.ds).values()],
+                slam.gen.get_state())
+
+    def ready(**plan):
+        before = snapshot()
+        slam.precompile(**plan)
+        after = snapshot()
+        assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+        assert torch.equal(before[1], after[1])
+
+    if precompile:
+        ready(max_edges=400)
+    for t in range(frames):
+        slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+             np.array([64.0, 64.0, 64.0, 48.0]))
+        if precompile and t == 6:
+            ready(around=slam.hs.e_num)
+    return slam
+
+
+def test_track_graph_replay_vs_eager(dev):
+    """The tracking program replayed as a CUDA graph against the same
+    program run eagerly from the same state and generator state: bitwise,
+    and the replay advances the generator as far as the eager run."""
+    from dpvo_tpu_torch.engine.dpvo import TRACK_WRITES
+    slam = _small_lagged(dev)
+    key, program = slam._track_program()
+    assert key in slam._graphs
+    img = np.random.default_rng(3).integers(0, 255, (96, 128, 3), np.uint8)
+    slam._stage_track(img, [64.0, 64.0, 64.0, 48.0], slam.n, 1.0, True)
+    (a, ga), (b, gb) = slam._replay_against_eager(
+        key, program, slam._writes(TRACK_WRITES), True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(ga, gb)
+
+
+def test_merge_graph_replay_vs_eager(dev):
+    """The keyframe merge replayed as a CUDA graph (captured here: the
+    drive merges nothing) against the same program run eagerly: every
+    table and the relative pose bitwise."""
+    from dpvo_tpu_torch.engine.dpvo import MERGE_WRITES
+    slam = _small_lagged(dev)
+    key, program = slam._merge_program()
+    assert key not in slam._graphs
+    slam._copy_in(slam.ds.merge_in, np.array([slam.n - 5, slam.n], np.int32))
+    (a, _), (b, _) = slam._replay_against_eager(
+        key, program, slam._writes(MERGE_WRITES), False)
+    assert key in slam._graphs and len(a) == len(MERGE_WRITES) + 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_precompile_leaves_the_state_unchanged(dev):
+    """``precompile`` before the first frame and mid-drive leaves the state
+    and the generator bitwise as they were (``_small_lagged`` checks each
+    call), captures the tracking and merge graphs and the plan's update
+    graphs, and the drive equals one without it, bitwise."""
+    ref = _small_lagged(dev)
+    slam = _small_lagged(dev, precompile=True)
+    names = {k[0] for k in slam._graphs if isinstance(k[0], str)}
+    assert names == {"track", "merge"}
+    assert slam.graph_pool_bytes() > 0
+    for a, b in zip(vars(ref.ds).values(), vars(slam.ds).values()):
         assert torch.equal(a, b)
 
 

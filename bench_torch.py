@@ -126,9 +126,13 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     warm frames, and ``graphs["precompile"]`` holds both calls' results.
     ``graphs`` also holds the updates
     run at each edge bucket (``buckets``), the capture ms of each graph
-    key (``capture_ms``), the graph pool's bytes (``pool_bytes``, None
-    without graphs) and the graphs captured inside the timed windows
-    (``window_captures``)."""
+    key captured on the engine's thread (``capture_ms``), the graph
+    pool's bytes (``pool_bytes``, None without graphs), the graphs captured
+    inside the timed windows on the engine's thread (``window_captures``,
+    each a stalled frame) and in the guard's worker
+    (``window_background``), the updates a cover served per key
+    (``cover_served``) and the worker's capture ms per key
+    (``background_ms``)."""
     import torch
     from dpvo_tpu_torch.device import resolve_device
     from dpvo_tpu_torch.engine import DPVO
@@ -143,8 +147,10 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     feed = FrameFeed(ht, wd, dev, seed)
 
     def sync():
+        # the engine's stream: a device-wide synchronise would fail a
+        # capture the engine's worker may hold open (the cold-bucket guard)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
 
     pre = []
 
@@ -165,7 +171,8 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     slam.enable_timing = timing
     slam.timing_block = timing_block
 
-    n_graphs = len(slam._graphs)
+    n_captured = len(slam.graph_capture_ms)
+    n_background = len(slam.background_capture_ms)
     windows, edges, per_frame = [], [], []
     t = n_warm
     while len(windows) < max_windows:
@@ -184,7 +191,8 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
             since_best = len(windows) - 1 - windows.index(max(windows))
             if top[0] > 0.9 * top[-1] and since_best >= 3:
                 break
-    window_captures = len(slam._graphs) - n_graphs
+    window_captures = len(slam.graph_capture_ms) - n_captured
+    window_background = len(slam.background_capture_ms) - n_background
     report = None
     if timing:
         slam.enable_timing = False
@@ -215,7 +223,10 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     graphs = dict(buckets=dict(sorted(slam.buckets_seen.items())),
                   capture_ms=dict(slam.graph_capture_ms),
                   pool_bytes=slam.graph_pool_bytes(), precompile=pre,
-                  window_captures=window_captures)
+                  window_captures=window_captures,
+                  window_background=window_background,
+                  cover_served=dict(slam.cover_served),
+                  background_ms=dict(slam.background_capture_ms))
     top = sorted(windows)[-5:]
     swin = sorted(windows)
     return dict(fps=top[len(top) // 2], median_fps=swin[len(swin) // 2],
@@ -260,7 +271,10 @@ def main(argv=None):
             f"{len(g['capture_ms'])}, capture ms "
             f"{[round(v, 1) for v in g['capture_ms'].values()]}, pool bytes "
             f"{g['pool_bytes']}, captures inside the timed windows "
-            f"{g['window_captures']}")
+            f"{g['window_captures']} (in the guard's worker "
+            f"{g['window_background']}); updates a cover served "
+            f"{sum(g['cover_served'].values())}, background capture ms "
+            f"{[round(v, 1) for v in g['background_ms'].values()]}")
     print(json.dumps(bench_line(results)))
     return 0
 

@@ -64,7 +64,8 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    calls by solver, peak live and inactive edges, peak device memory, 3
    profiled frames with global BA, K2 at one eager update on the drive's
    end state, on the 96000-row gmap ring, K3 and K4 at the drive's eager
-   calls with the most groups, K3 past 4104 live groups); then one
+   calls with the most groups, K3 past 4104 live groups, the updates a
+   cover served, at a raised patch capacity among them); then one
    ``ba_global`` call at that drive's largest shapes under
    ``torch.cuda.set_sync_debug_mode("error")``;
 6. train (``train_torch.py``'s step, which runs no hand-written kernel:
@@ -130,11 +131,32 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    track_frame, keyframe/apply, update/step and update/meta, device idle,
    buckets visited, capture ms per graph, the graph pool's bytes (largest
    bucket first, against the engines of (a) and (b), which capture at
-   first reach), ``precompile``'s seconds, launches, and no capture
-   inside the timed windows after ``precompile``; and K2, K3 and K4 at
+   first reach), ``precompile``'s seconds, launches, no capture on the
+   engine's thread inside the timed windows after ``precompile`` (the
+   guard's worker's captures and the updates a cover served beside); and
+   K2, K3 and K4 at
    the merge drive's padded bucket (its eager update calls: the warm-ups
    of captures at first reach, one update on its end state) against
    their plain versions;
+9c. guard (the JAX engine's cold-bucket guard: an update whose key has no
+   graph replays the smallest captured cover while the engine's worker
+   thread captures the key): the lagged merge drive at 480x640, M=96,
+   bf16, 40 frames after ``precompile(max_edges=1024)``, so that the
+   ladder's top (57344) is the only cover of its 14336-24576 buckets: each
+   frame call's wall ms to the end of its device work (worst, median),
+   captures on the engine's thread after ``precompile`` (must be 0), the
+   updates a cover served per key and each background capture's ms (each
+   must land), every initialised frame under sync debug mode "error"
+   (some served by a cover with a capture in flight); its poses against
+   the same drive with every bucket precompiled (AGREE_BF16, structure
+   exact); phase 5's loop-closure drive, nothing precompiled (its keys
+   captured at first reach on the engine's thread, those at a raised
+   patch capacity served by a cover where one exists): median and worst
+   frames, with and without global BA; with ``--parent DIR`` both drives
+   on that checkout (the parent tree), this script run there in a fresh
+   process (``--guard-drive DIR``), for their worst frames; and a failure
+   injected into a background capture, which must raise on the engine
+   thread;
 10. redwood (Redwood fine-tuning, ``configs/redwood_train.yaml``): a
    synthetic 72-frame 480x640 Redwood tree (JPEG images, uint16 mm depth
    PNGs, a column-major PoseGraph JSON, ``intrinsic.npy``) through the
@@ -185,8 +207,13 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    ``{"ok": true, "device": {...}}``.
 
 ``--only PHASE[,PHASE]`` (kernels, agree, agree_bf16, engine, lc, train,
-eval, classic, bench, graphs, redwood, viz, sharded, tools)
+eval, classic, bench, graphs, guard, redwood, viz, sharded, tools)
 runs those phases alone and prints no kernels line and no ``ok`` line.
+``--parent DIR``: the guard phase also times its drives on the checkout
+``DIR`` (``--guard-drive DIR`` runs them alone, with ``DIR``'s engine,
+and prints their frame times as one line ``GUARD {...}``).  Engine
+drives wait on the current stream between frames (``stream_sync``),
+never with a device-wide synchronise.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -237,6 +264,15 @@ KERNELS = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def stream_sync():
+    """Wait for the work queued on the current stream, the engines' own.
+    Engine drives wait so, not with a device-wide synchronise: CUDA refuses
+    that while the cold-bucket guard's worker holds a capture open, and the
+    capture fails with it."""
+    import torch
+    torch.cuda.current_stream().synchronize()
 
 
 def card_line():
@@ -950,8 +986,28 @@ def small_drive(dev, thresh, network, n_frames=16, hook=None,
              np.nonzero(slam.ran_global_ba)[0].tolist())
     poses, _ = slam.terminate()
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        stream_sync()
     return poses, state
+
+
+STRUCTURE = ("keyframes", "live edges", "keyframe timestamps",
+             "delta keys", "inactive edges", "inactive (ii, jj, kk)",
+             "global BA keyframe counts")
+
+
+def structure_diff(a, b):
+    """Where two ``small_drive`` structures differ: the fields, and for the
+    inactive edges the first differing row of each index array."""
+    out = []
+    for name, x, y in zip(STRUCTURE, a, b):
+        if x == y:
+            continue
+        if name == "inactive (ii, jj, kk)":
+            rows = [next((i for i, (u, v) in enumerate(zip(p, q)) if u != v),
+                         min(len(p), len(q))) for p, q in zip(x, y)]
+            name += f" (first differing rows {rows})"
+        out.append(name)
+    return ", ".join(out)
 
 
 def phase_agreement(dev):
@@ -1204,7 +1260,7 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
 
     def sync():
         if dev.type == "cuda":
-            torch.cuda.synchronize()
+            stream_sync()
 
     def frame(t):
         return np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
@@ -1373,7 +1429,7 @@ def end_state_update(slam):
     bucket, has_mm, k_cap, restore = stage_live_update(slam)
     slam._update_program(bucket, True, has_mm, k_cap)()
     restore()
-    torch.cuda.synchronize()
+    stream_sync()
 
 
 def replay_against_eager(slam, regime, bucket, reps=5):
@@ -1386,16 +1442,20 @@ def replay_against_eager(slam, regime, bucket, reps=5):
     _, _, k_cap, restore = stage_live_update(slam)
     names = UPDATE_WRITES
 
+    key = slam._update_key(bucket, True, True, k_cap)
+
     def run(graph):
+        # the exact key's graph (captured here if need be), never a cover
         if graph:
-            return slam._call_update_step(bucket, True, True, k_cap)
-        return slam._update_program(bucket, True, True, k_cap)()
+            return slam._run(key, slam._update_program(*key),
+                             slam._update_writes(bucket))
+        return slam._update_program(*key)()
 
     outs = {}
     for graph in (True, False):
         restore()
         mag = run(graph)
-        torch.cuda.synchronize()
+        stream_sync()
         outs[graph] = [getattr(ds, k)[:bucket].clone() if k in names[:3]
                        else getattr(ds, k).clone() for k in names] + [
             mag.clone()]
@@ -1409,18 +1469,19 @@ def replay_against_eager(slam, regime, bucket, reps=5):
         runs = []
         for _ in range(reps):
             restore()
-            torch.cuda.synchronize()
+            stream_sync()
             t0 = time.perf_counter()
             run(graph)
-            torch.cuda.synchronize()
+            stream_sync()
             runs.append((time.perf_counter() - t0) * 1e3)
         ms[graph] = sorted(runs)[reps // 2]
     restore()
-    torch.cuda.synchronize()
+    stream_sync()
     ok = max(errs.values()) <= TOL_GRAPH and bool(torch.isfinite(
         outs[True][3]).all())
-    capture = [v for k, v in slam.graph_capture_ms.items()
-               if k[:4] == (bucket, True, True, k_cap)]
+    capture = [v for ms in (slam.graph_capture_ms,
+                            slam.background_capture_ms)
+               for k, v in ms.items() if k[:4] == (bucket, True, True, k_cap)]
     log(f"[graphs] {regime} replay vs eager at bucket {bucket} "
         f"({hs.e_num} live edges, k_cap {k_cap}): max error / max|eager| "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -1447,22 +1508,14 @@ def drive_to_bucket(slam, feed, intr, bucket, t=0, max_frames=80):
                      f"{max_frames} frames")
 
 
-def check_frame_syncs(slam, feed, intr, t, max_frames=12):
-    """Warm frames of the lagged merge drive under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
-    raises), until one has applied a merge; the overdue batch's event wait,
-    a designed wait, is bracketed on its own (the mode is off for it alone)
-    and counted.  First the drive runs until SYNC_WARM frames in a row
-    captured no new graph.  -> the next frame index."""
+@contextlib.contextmanager
+def sync_checked(waits):
+    """The block under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+    synchronisation raises), the overdue batch's event wait, a designed
+    wait, bracketed on its own (the mode off for it alone) and counted in
+    ``waits[0]``."""
     import torch
-    quiet = 0
-    while quiet < SYNC_WARM:
-        n_graphs = len(slam._graphs)
-        slam(t, feed.get(t), intr)
-        t += 1
-        quiet = quiet + 1 if len(slam._graphs) == n_graphs else 0
     orig = torch.cuda.Event.synchronize
-    waits = [0]
 
     def bracketed(event):
         torch.cuda.set_sync_debug_mode(0)
@@ -1472,21 +1525,41 @@ def check_frame_syncs(slam, feed, intr, t, max_frames=12):
             waits[0] += 1
             torch.cuda.set_sync_debug_mode("error")
 
+    torch.cuda.Event.synchronize = bracketed
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.Event.synchronize = orig
+
+
+def check_frame_syncs(slam, feed, intr, t, max_frames=12):
+    """Warm frames of the lagged merge drive under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
+    raises), until one has applied a merge; the overdue batch's event wait,
+    a designed wait, is bracketed on its own (the mode is off for it alone)
+    and counted.  First the drive runs until SYNC_WARM frames in a row
+    captured no new graph on the engine's thread (``graph_capture_ms``; a
+    cover's frame, whose key the guard's worker captures, may be checked).
+    -> the next frame index."""
+    quiet = 0
+    while quiet < SYNC_WARM:
+        n_graphs = len(slam.graph_capture_ms)
+        slam(t, feed.get(t), intr)
+        t += 1
+        quiet = quiet + 1 if len(slam.graph_capture_ms) == n_graphs else 0
+    waits = [0]
     checked, merged = 0, 0
     while checked < max_frames and not merged:
         img = feed.get(t)          # the feed's own buffer wait stays out
-        n_graphs, n_delta = len(slam._graphs), len(slam.hs.delta)
-        torch.cuda.synchronize()
-        torch.cuda.Event.synchronize = bracketed
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        n_graphs, n_delta = len(slam.graph_capture_ms), len(slam.hs.delta)
+        stream_sync()
+        with sync_checked(waits):
             slam(t, img, intr)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.Event.synchronize = orig
-        torch.cuda.synchronize()
+        stream_sync()
         t += 1
-        if len(slam._graphs) != n_graphs:
+        if len(slam.graph_capture_ms) != n_graphs:
             raise SystemExit("graphs: a checked frame captured a new graph")
         checked += 1
         merged = len(slam.hs.delta) - n_delta
@@ -1617,8 +1690,14 @@ def report_run(regime, r, arm):
         f"{len(g['capture_ms'])}, capture ms " + ", ".join(
             f"{key_name(k)}: {v:.1f}" for k, v in g["capture_ms"].items())
         + f"; pool {'none' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
-        f"captures inside the timed windows {g['window_captures']}; "
-        f"launches {r['launches']}")
+        f"captures inside the timed windows {g['window_captures']} (in the "
+        f"guard's worker {g['window_background']}); updates a cover served "
+        + (", ".join(f"{key_name(k)}: {v}" for k, v in
+                     g["cover_served"].items()) or "none")
+        + "; background capture ms " + (", ".join(
+            f"{key_name(k)}: {v:.1f}" for k, v in g["background_ms"].items())
+            or "none")
+        + f"; launches {r['launches']}")
     for i, pc in enumerate(g["precompile"]):
         after = pc["pool_bytes"]
         log(f"[graphs] {regime} {arm}: precompile call {i + 1}: "
@@ -1656,7 +1735,7 @@ def program_replays_against_eager(slam, feed, t):
         gen0 = slam.gen.get_state()
         (a, ga), (b, gb) = slam._replay_against_eager(
             key, program, slam._writes(writes), draws)
-        torch.cuda.synchronize()
+        stream_sync()
         same = [torch.equal(x, y) for x, y in zip(a, b)]
         advanced = not torch.equal(ga, gen0)
         res[name] = all(same) and torch.equal(ga, gb) and advanced == draws
@@ -1697,6 +1776,7 @@ def phase_graphs(dev, bench=None):
             program_replays_against_eager(slam, feed, t)
             t = check_frame_syncs(slam, feed, intr, t)
         first[regime] = (slam.graph_pool_bytes(), len(slam._graphs), t)
+        slam._wait_captures()     # the device synchronises after this
         del slam, feed
     runs = {}
     for regime in ("merge", "retain"):
@@ -1736,6 +1816,323 @@ def phase_graphs(dev, bench=None):
                          "eager one")
     log(f"[graphs] phase {time.perf_counter() - t_phase:.1f} s")
     return runs
+
+
+# --- phase 9c: the cold-bucket guard ---------------------------------------
+
+GUARD_FRAMES = 40
+GUARD_PLAN = dict(max_edges=1024)     # ladder <= 8192, plus the top, 57344
+FULL_PLAN = dict(max_edges=24576)     # every bucket the drive reaches
+
+
+def guard_drive(dev, regime="merge", plan=None, n_frames=GUARD_FRAMES,
+                around=None):
+    """A drive whose frame calls the guard phase times, on the engine that
+    ``import dpvo_tpu_torch`` finds (this tree's, or a parent checkout's
+    in ``--guard-drive``'s process): ``merge``, the lagged merge drive
+    (bench_torch's config and frame feed) after ``precompile(**plan)``;
+    ``lc``, phase 5's loop-closure drive (``configs/default.yaml`` with
+    LC_FULL, a frame rolling 4 px a frame), nothing precompiled.  Each
+    frame call's wall ms to the end of its device work (the engine's
+    stream waited on before and after: a device-wide synchronise is
+    refused while a capture is open in another thread); ``around(slam, t,
+    img, intr)`` makes the call if given.  -> dict: slam, pre (precompile's
+    result or None), and ``drive_stats``'s keys."""
+    import gc
+    import torch
+    import bench_torch
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    ht, wd = 480, 640
+    if regime == "merge":
+        cfg = bench_torch.regime_config("merge")
+        feed = bench_torch.FrameFeed(ht, wd, dev)
+        intr = np.array([320.0, 320.0, 320.0, 240.0])
+        frame = feed.get
+    else:
+        root = Path(bench_torch.__file__).resolve().parent
+        cfg = VOConfig().merge_yaml(
+            str(root / "configs" / "default.yaml")).replace(**LC_FULL)
+        base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
+                                                 dtype=np.uint8)
+        intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
+
+        def frame(t):
+            return np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
+    slam = DPVO(cfg, network=None, ht=ht, wd=wd, device=dev, seed=0)
+    slam.motion_probe = lambda: 100.0
+    stream = torch.cuda.current_stream(dev)
+    pre = slam.precompile(**plan) if plan is not None else None
+    pauses, spans, reserved, init, glob = [], [], [], None, []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            on_gc.t0 = time.perf_counter()
+        else:
+            pauses.append((on_gc.t0, time.perf_counter()))
+
+    gc.callbacks.append(on_gc)
+    try:
+        for t in range(n_frames):
+            img = frame(t)
+            ran = np.count_nonzero(slam.ran_global_ba)
+            stream.synchronize()
+            t0 = time.perf_counter()
+            if around is None:
+                slam(t, img, intr)
+            else:
+                around(slam, t, img, intr)
+            stream.synchronize()
+            spans.append((t0, time.perf_counter()))
+            reserved.append(torch.cuda.memory_reserved(dev))
+            if init is None and slam.is_initialized:
+                init = t                     # the frame of the 12 updates
+            if np.count_nonzero(slam.ran_global_ba) > ran:
+                glob.append(t)
+    finally:
+        gc.callbacks.remove(on_gc)
+    ms = [(b - a) * 1e3 for a, b in spans]
+    gc_ms = [sum(max(0.0, min(b, e) - max(a, s)) for s, e in pauses) * 1e3
+             for a, b in spans]
+    grew = [t for t in range(1, n_frames) if reserved[t] > reserved[t - 1]]
+    pre_keys = set(pre["ms"]) if pre is not None else set()
+    here = [v for k, v in slam.graph_capture_ms.items() if k not in pre_keys]
+    served = getattr(slam, "cover_served", {})
+    return dict(
+        slam=slam, pre=pre, ms=ms, gc_ms=gc_ms, grew=grew, init=init,
+        glob=glob, here_ms=here,
+        served=sum(served.values()),
+        raised=sum(v for k, v in served.items() if k[3] > slam.k_cap),
+        background_ms=list(getattr(slam, "background_capture_ms",
+                                   {}).values()))
+
+
+def drive_stats(res):
+    """``guard_drive``'s result without its engine: what the log reads,
+    and what ``--guard-drive``'s process prints."""
+    return {k: v for k, v in res.items() if k not in ("slam", "pre")}
+
+
+def frame_line(d):
+    """median, worst warm frame (its index, its garbage collection time),
+    the worst warm frame without global BA where one ran, the init frame;
+    captures on the engine thread (after ``precompile``), covers served"""
+    ms, gc_ms, warm0 = d["ms"], d["gc_ms"], d["init"] + 1
+    w = ms[warm0:]
+    i = warm0 + int(np.argmax(w))
+    line = (f"median {sorted(ms)[len(ms) // 2]:.2f} ms, worst warm frame "
+            f"{max(w):.2f} ms (frame {i}, garbage collection "
+            f"{gc_ms[i]:.2f} ms of it)")
+    if d["glob"]:
+        plain = [m for t, m in enumerate(ms) if t >= warm0
+                 and t not in d["glob"]]
+        line += (f", global BA in frames {d['glob']}, worst warm frame "
+                 f"without it {max(plain):.2f} ms")
+    here = d["here_ms"]
+    return line + (
+        f", initialisation frame {ms[warm0 - 1]:.2f} ms; garbage "
+        f"collection in the warm frames {sum(gc_ms[warm0:]):.2f} ms, at "
+        f"most {max(gc_ms[warm0:]):.2f} in one; captures on the engine "
+        f"thread {len(here)}"
+        + (f" ({sum(here):.1f} ms, at most {max(here):.1f})" if here else "")
+        + f"; updates a cover served {d['served']} ({d['raised']} at a "
+        f"raised patch capacity); background captures "
+        f"{[round(m, 1) for m in d['background_ms']]} ms")
+
+
+def parent_drives(parent):
+    """The guard phase's two drives on the checkout ``parent``: this script
+    in a fresh process with ``parent`` first on its path, its own kernel
+    build (``--guard-drive``).  -> {"merge": drive_stats, "lc": ...}."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--guard-drive",
+         str(parent)], cwd=parent, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"guard: the drives on {parent} failed:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("GUARD ")]
+    return json.loads(line[-1][6:])
+
+
+def guard_drive_main(parent):
+    """``--guard-drive DIR``: the guard phase's merge and loop-closure
+    drives on the engine of the checkout DIR, their ``drive_stats`` printed
+    as one line ``GUARD {...}``."""
+    import torch
+    sys.path.insert(0, str(Path(parent).resolve()))
+    import dpvo_tpu_torch
+    assert Path(dpvo_tpu_torch.__file__).resolve().is_relative_to(
+        Path(parent).resolve()), dpvo_tpu_torch.__file__
+    dev = torch.device("cuda:0")
+    out = {}
+    for regime, plan, n in (("merge", GUARD_PLAN, GUARD_FRAMES),
+                            ("lc", None, LC_FULL_FRAMES)):
+        res = guard_drive(dev, regime, plan, n)
+        out[regime] = drive_stats(res)
+        res["slam"].terminate()
+        del res
+    print("GUARD " + json.dumps(out), flush=True)
+    return 0
+
+
+def checked_frame(stats):
+    """A frame call for ``guard_drive``: once the engine is initialised,
+    ``sync_checked``; records the checked frames a cover served while a
+    capture was in flight, and the frame after which each background
+    capture had landed."""
+    def frame(slam, t, img, intr):
+        if not slam.is_initialized:
+            slam(t, img, intr)
+            return
+        served = sum(slam.cover_served.values())
+        with sync_checked(stats["waits"]):
+            slam(t, img, intr)
+        stats["checked"] += 1
+        if sum(slam.cover_served.values()) > served and slam._in_flight:
+            stats["covered"] += 1
+        for key in slam.background_capture_ms:
+            stats["landed"].setdefault(key, t)
+    return frame
+
+
+def injected_failure(dev):
+    """A background capture made to fail (the update program raises in the
+    worker) must raise on the engine thread at its next update: the small
+    fp32 engine on a two-step ladder (its updates ask for 1024, 1536
+    covers them)."""
+    import threading
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(**{**SMALL, "EDGE_CAPACITY": 1536, "BUCKET_FLOOR": 1024,
+                      "ASYNC_KEYFRAME": True})
+    slam = small_seams(DPVO(cfg, network=small_network(), ht=SMALL_HW[0],
+                            wd=SMALL_HW[1], device=dev))
+    slam.precompile(max_edges=1536)
+    del slam._graphs[slam._update_key(1024, True, True, slam.k_cap)]
+    real, main = slam._update_program, threading.current_thread()
+
+    def failing(*key):
+        run = real(*key)
+
+        def failing_run():
+            if threading.current_thread() is not main:
+                raise RuntimeError("injected capture failure")
+            return run()
+        return failing_run
+    slam._update_program = failing
+    try:
+        for t, img in enumerate(small_frames()):
+            slam(t, img, SMALL_INTR)
+    except RuntimeError as e:
+        if "injected capture failure" not in str(e):
+            raise
+        log(f"[guard] injected failure: a background capture that raised "
+            f"in the worker raised on the engine thread at frame {t} "
+            f"({type(e).__name__}: {e}) OK")
+        slam._worker.shutdown()
+        return
+    raise SystemExit("guard: a failed background capture raised nothing on "
+                     "the engine thread")
+
+
+def phase_guard(dev, parent=None):
+    """The cold-bucket guard on the lagged merge drive at 480x640, M=96,
+    bf16, after ``precompile(max_edges=1024)`` (the update keys at 8192
+    and at the ladder's top, 57344, the only cover of the drive's
+    10240-24576 buckets): each frame call's wall ms (worst, median),
+    captures on the engine thread after precompile (must be 0), updates a
+    cover served per key and each background capture's ms (each must
+    land); every initialised frame under sync debug mode "error"; the
+    poses against the same drive with every bucket precompiled
+    (AGREE_BF16, structure exact); the loop-closure drive's frames (its
+    keys captured at first reach, those at a raised patch capacity
+    served by a cover where one was captured); with ``parent`` the
+    parent tree's two drives in a fresh process, for their worst frames;
+    and an injected failure."""
+    import torch
+    t_phase = time.perf_counter()
+    stats = dict(checked=0, covered=0, waits=[0], landed={})
+    res = guard_drive(dev, "merge", GUARD_PLAN, around=checked_frame(stats))
+    slam, pre, ms = res["slam"], res["pre"], res["ms"]
+    warm0 = res["init"] + 1
+    n_pre = len(pre["ms"])
+    here = {k: v for k, v in slam.graph_capture_ms.items()
+            if k not in pre["ms"]}
+    served = dict(slam.cover_served)
+    in_flight = list(slam._in_flight)
+    poses, _ = slam.terminate()
+    torch.cuda.current_stream(dev).synchronize()
+    landed = dict(slam.background_capture_ms)
+    log(f"[guard] merge 480x640 M=96 bf16, precompile {GUARD_PLAN}: "
+        f"{n_pre} keys ({', '.join(key_name(k) for k in pre['ms'])}) in "
+        f"{pre['seconds']:.2f} s; {GUARD_FRAMES} frames, frame call to the "
+        f"end of its device work: {frame_line(drive_stats(res))}; second "
+        f"worst warm frame {sorted(ms[warm0:])[-2]:.2f} ms; per frame "
+        f"{[round(m, 2) for m in ms]}; reserved memory grew in frames "
+        f"{res['grew']}; buckets asked {slam.buckets_seen}")
+    log(f"[guard] captures on the engine thread after precompile: "
+        f"{len(here)} {[key_name(k) for k in here]}; updates a cover served "
+        + ", ".join(f"{key_name(k)}: {v}" for k, v in served.items())
+        + "; background captures (ms, in the worker, in the order they "
+        "landed) "
+        + ", ".join(f"{key_name(k)}: {v:.1f}" for k, v in landed.items())
+        + "; landed after frame " + ", ".join(
+            f"{key_name(k)}: {t}" for k, t in stats["landed"].items())
+        + f"; in flight at the last frame {len(in_flight)}")
+    log(f"[guard] {stats['checked']} initialised frames under sync debug "
+        f"mode \"error\": no host synchronisation; {stats['covered']} of "
+        f"them served by a cover with a capture in flight; "
+        f"{stats['waits'][0]} overdue-batch event wait(s) bracketed")
+    ok = (not here and served and set(landed) == set(served)
+          and stats["covered"] > 0)
+    ref = guard_drive(dev, "merge", FULL_PLAN)
+    ref_slam = ref["slam"]
+    ref_keyframes, ref_edges = ref_slam.n, ref_slam.hs.e_num
+    ref_poses, _ = ref_slam.terminate()
+    err_t, err_q = pose_errors(poses, ref_poses)
+    atol_t, atol_q = AGREE_BF16
+    same = (slam.n, slam.hs.e_num) == (ref_keyframes, ref_edges)
+    agree = (same and np.isfinite(poses).all() and err_t <= atol_t
+             and err_q <= atol_q)
+    log(f"[guard] poses against the drive with every bucket precompiled "
+        f"{FULL_PLAN} ({frame_line(drive_stats(ref))}): keyframes "
+        f"{slam.n} / {ref_keyframes}, live edges {slam.hs.e_num} / "
+        f"{ref_edges}; max|dt|={err_t:.3e} (tol {atol_t}) "
+        f"1-min|q.q'|={err_q:.3e} (tol {atol_q}) "
+        f"{'OK' if agree else 'FAIL'}")
+    del slam, ref, ref_slam, res
+    lc = guard_drive(dev, "lc", n_frames=LC_FULL_FRAMES)
+    lc_poses, _ = lc["slam"].terminate()
+    lc_ok = np.isfinite(lc_poses).all()
+    lc = drive_stats(lc)
+    log(f"[guard] loop-closure drive (phase 5's, {LC_FULL_FRAMES} frames, "
+        f"nothing precompiled): {frame_line(lc)}; poses finite {lc_ok}")
+    if parent is not None:
+        p = parent_drives(parent)
+        log(f"[guard] parent tree {parent}, the same merge drive: "
+            f"{frame_line(p['merge'])}; per frame "
+            f"{[round(m, 2) for m in p['merge']['ms']]}; reserved memory "
+            f"grew in frames {p['merge']['grew']}; this tree's worst warm "
+            f"frame {max(ms[warm0:]):.2f} ms")
+        log(f"[guard] parent tree {parent}, the same loop-closure drive: "
+            f"{frame_line(p['lc'])}; this tree's worst warm frame "
+            f"{max(lc['ms'][lc['init'] + 1:]):.2f} ms")
+    else:
+        log("[guard] parent tree: not given (--parent DIR)")
+    injected_failure(dev)
+    log(f"[guard] phase {time.perf_counter() - t_phase:.1f} s "
+        f"{'OK' if ok and agree and lc_ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"guard: engine-thread captures {len(here)}, "
+                         f"served {served}, landed {list(landed)}, checked "
+                         f"cover frames {stats['covered']}")
+    if not agree:
+        raise SystemExit("guard: the guarded drive disagrees with the fully "
+                         "precompiled one")
+    if not lc_ok:
+        raise SystemExit("guard: the loop-closure drive's poses are not "
+                         "finite")
 
 
 # --- phase 5: loop closure ------------------------------------------------
@@ -1837,8 +2234,9 @@ def phase_lc_agreement(dev):
         f"inactive={s_gpu[4]} global BA at keyframe counts {s_gpu[6]}; "
         f"proposals (n, pairs) {out['proposals']}; global BA calls "
         f"{len(out['global_ms'])} (ba_global {out['ba_global']}); "
-        f"structure {'same' if s_gpu == s_cpu else 'DIFFERENT'}; "
-        f"max|dt|={err_t:.3e} (tol {atol_t}) 1-min|q.q'|={err_q:.3e} "
+        f"structure {'same' if s_gpu == s_cpu else 'DIFFERENT'}"
+        + (f" in {structure_diff(s_gpu, s_cpu)}" if s_gpu != s_cpu else "")
+        + f"; max|dt|={err_t:.3e} (tol {atol_t}) 1-min|q.q'|={err_q:.3e} "
         f"(tol {atol_q}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the loop-closure engine on the card disagrees "
@@ -1868,7 +2266,7 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
     base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
                                              dtype=np.uint8)
     intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
-    torch.cuda.synchronize()
+    stream_sync()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     ms, with_global, peak_e, peak_inac = [], [], 0, 0
@@ -1886,7 +2284,7 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
             calls = len(out["global_ms"])
             t0 = time.perf_counter()
             slam(t, img, intr)
-            torch.cuda.synchronize()
+            stream_sync()
             frame_ms = (time.perf_counter() - t0) * 1e3
             if t in profiled:
                 prof_calls.update(range(calls, len(out["global_ms"])))
@@ -1901,7 +2299,7 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
             peak_e = max(peak_e, slam.hs.e_num)
             peak_inac = max(peak_inac, slam.hs.n_inac)
         poses, tstamps = slam.terminate()
-        torch.cuda.synchronize()
+        stream_sync()
         launches = dict(_cuda.launches)
         end_state_update(slam)
     mem = torch.cuda.max_memory_allocated() / 2**30
@@ -1934,6 +2332,16 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
         f"{[key_name(k) for k in keys]}; capture ms "
         f"{sum(slam.graph_capture_ms.values()):.1f} in all; pool "
         f"{(pool or 0) / 2**20:.1f} MiB")
+    raised = {k: v for k, v in slam.cover_served.items()
+              if k[3] > slam.k_cap}
+    log(f"[lc] full drive's cold-bucket guard: a cover served "
+        f"{sum(slam.cover_served.values())} updates of "
+        f"{len(slam.cover_served)} keys, {sum(raised.values())} of them of "
+        f"{len(raised)} keys at a raised patch capacity ("
+        + (", ".join(f"{key_name(k)}: {v}" for k, v in raised.items())
+           or "none") + "); background capture ms "
+        + (", ".join(f"{key_name(k)}: {v:.1f}" for k, v in
+                     slam.background_capture_ms.items()) or "none"))
     log(f"[profile] lc full drive frames {profiled[0]}..{profiled[-1]} "
         f"(synchronised each frame): {profile}")
     ok = (poses.shape == (n_frames, 7) and np.isfinite(poses).all()
@@ -2458,10 +2866,10 @@ def phase_eval(dev, n_frames=EVAL_FRAMES, ht=480, wd=640):
 
     def timed():
         for t, img in enumerate(frames):
-            torch.cuda.synchronize()
+            stream_sync()
             ticks.append(time.perf_counter())
             yield t, img, ev.INTRINSICS
-        torch.cuda.synchronize()
+        stream_sync()
         ticks.append(time.perf_counter())
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2469,12 +2877,12 @@ def phase_eval(dev, n_frames=EVAL_FRAMES, ht=480, wd=640):
         torch.save(sd, weights)
         np.savetxt(Path(tmp) / "pose_left.txt", ned, delimiter=" ")
         traj_ref = load_tartan_pose_file(str(Path(tmp) / "pose_left.txt"))
-        torch.cuda.synchronize()
+        stream_sync()
         torch.cuda.reset_peak_memory_stats()
         _cuda.reset_launches()
         with lc_counters() as counters, eval_engines(adapt) as built:
             poses, tstamps = ev.run_frames(cfg, str(weights), timed(), dev)
-        torch.cuda.synchronize()
+        stream_sync()
         launches = dict(_cuda.launches)
     (slam,) = built
     n_loaded = check_loaded(slam, sd)
@@ -3122,14 +3530,14 @@ def viz_drive(dev, viz, n_frames=VIZ_FRAMES, ht=480, wd=640):
     base = np.random.default_rng(0).integers(0, 255, (ht, 2 * wd, 3),
                                              dtype=np.uint8)
     intr = np.array([wd / 2, wd / 2, wd / 2, ht / 2])
-    torch.cuda.synchronize()
+    stream_sync()
     _cuda.reset_launches()
     ms = []
     for t in range(n_frames):
         img = np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
         t0 = time.perf_counter()
         slam(t, img, intr)
-        torch.cuda.synchronize()
+        stream_sync()
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_cuda.launches)
     poses, _ = slam.terminate()
@@ -3216,7 +3624,7 @@ def snapshot_cost(dev, slam, frame, reps=5):
     before = dict(_cuda.launches)
     host, landed = [], []
     for _ in range(reps):
-        synchronize(dev)
+        stream_sync()
         t0 = time.perf_counter()
         snap = take_snapshot(slam, frame)
         host.append((time.perf_counter() - t0) * 1e3)
@@ -3844,9 +4252,12 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--guard-drive" in argv:
+        # before this tree's package is imported: the checkout's is used
+        return guard_drive_main(argv[argv.index("--guard-drive") + 1])
     from dpvo_tpu_torch.ops import _cuda
     phases = ("kernels", "agree", "agree_bf16", "engine", "lc", "train",
-              "eval", "classic", "bench", "graphs", "redwood", "viz",
+              "eval", "classic", "bench", "graphs", "guard", "redwood", "viz",
               "sharded", "tools")
     only = None
     if "--only" in argv:
@@ -3855,6 +4266,9 @@ def main(argv):
             print(f"chip_smoke: --only takes {','.join(phases)}",
                   file=sys.stderr)
             return 2
+    parent = None
+    if "--parent" in argv:
+        parent = Path(argv[argv.index("--parent") + 1]).resolve()
 
     marks = []     # (phase, start) of each phase run, for the time log
 
@@ -3910,6 +4324,8 @@ def main(argv):
         bench = phase_bench(dev)
     if run("graphs"):
         phase_graphs(dev, bench)
+    if run("guard"):
+        phase_guard(dev, parent)
     if run("redwood"):
         phase_redwood(dev)
     if run("viz"):

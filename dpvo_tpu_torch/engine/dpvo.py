@@ -29,7 +29,11 @@ per static key (tracking: the centroid strategy and the parity seam; the
 update: bucket, local BA, magnitude, patch capacity, correlation version;
 the merge: one), all in one pool, captured the first time the key is
 reached or ahead of the frames by ``precompile``; ``cuda_graphs=False``
-runs them eagerly, as the CPU always does.
+runs them eagerly, as the CPU always does.  The JAX engine's cold-bucket
+guard: an update whose key has no graph yet replays the smallest captured
+key that covers it (a larger bucket and patch capacity: the extra rows are
+masked) while a worker thread captures its own graph, so an edge count
+past the plan does not stop a frame for a capture.
 
 Keyframe decisions come in two timings:
 
@@ -68,7 +72,7 @@ thread; ``terminate()`` joins it, which writes ``latest.png`` and
 Phase timers (off by default, the JAX engine's): set ``enable_timing``,
 run frames, read ``timing_report()``.  Each phase is wall time on the host
 clock; with ``timing_block`` (the default) both ends of a phase first
-synchronise the card, so the time covers the phase's device work, and
+wait for the engine's stream, so the time covers the phase's device work, and
 without it the time is the host's dispatch alone.  The phases nest:
 ``keyframe`` holds ``keyframe/*``, and ``update/meta`` and
 ``update/step`` lie inside no other phase, so only ``track_frame``,
@@ -79,7 +83,9 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import threading
 import time
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -159,13 +165,25 @@ class DPVO:
         # the device programs on the card: one CUDA graph per static key
         # (update: bucket, run_ba, has_mm, k_cap, correlation version;
         # ("track", strategy, seam); ("merge",)), captured the first time
-        # the key is reached or by precompile(); cuda_graphs=False runs
-        # them eagerly (on the CPU they always run eagerly)
+        # the key is reached (an update key with a captured cover: in the
+        # worker, meanwhile replaying the cover) or by precompile();
+        # cuda_graphs=False runs them eagerly (on the CPU they always run
+        # eagerly)
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._graphs: dict = {}
         self._graph_pool = None
-        self.graph_capture_ms: dict = {}
+        self._capture_stream = None       # every capture records on it
+        self.graph_capture_ms: dict = {}  # key -> ms, captures on this thread
         self.buckets_seen: dict = {}      # bucket -> updates run at it
+        # the cold-bucket guard (the JAX engine's, ``_call_update_step``):
+        # updates a cover served per exact key, and the worker's captures
+        self.cover_served: dict = {}
+        self.background_capture_ms: dict = {}
+        self._graph_lock = threading.Lock()   # the worker picks, publishes
+        self._worker = None               # one capture thread, made lazily
+        self._in_flight: dict = {}        # key -> Future of its capture
+        self._last_ask: dict = {}         # key -> ask number of its last ask
+        self._asks = 0
         # lagged keyframe decisions (ASYNC_KEYFRAME): device magnitudes
         # with their candidate timestamps, then flushed batches
         # (host vector, copy event, timestamps, kf_clock at the flush)
@@ -213,8 +231,10 @@ class DPVO:
     # --- phase timing ------------------------------------------------------
 
     def _fence(self):
+        # the engine's stream, not the device: a device-wide synchronise
+        # fails a capture the worker holds open (``_record``)
         if self.timing_block and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _tick(self):
         if not self.enable_timing:
@@ -400,6 +420,7 @@ class DPVO:
 
     def update(self):
         cfg, hs = self.cfg, self.hs
+        self._check_captures()
         if hs.e_num == 0:            # no keyframe pair yet: nothing to solve
             return
         self._flush_edge_permute()
@@ -458,9 +479,10 @@ class DPVO:
             host[UPDATE_SCALARS:] = blob
         self._copy_in(self.ds.update_in, host)
 
-    def _update_program(self, bucket, run_ba, has_mm, k_cap):
+    def _update_program(self, bucket, run_ba, has_mm, k_cap, version=None):
         """The update as a function of the device state alone: reads
-        ``update_in``, writes the state, returns the magnitude or None."""
+        ``update_in``, writes the state, returns the magnitude or None;
+        ``version``: the correlation version (default the current one)."""
         ds = self.ds
         e_num, t0, t1 = ds.update_in[:UPDATE_SCALARS]
         blob = ds.update_in[UPDATE_SCALARS:]
@@ -470,15 +492,47 @@ class DPVO:
             return kernels.update_step_dev(
                 ds, self.update_mod, bucket, e_num, t0, t1, blob, M=self.M,
                 pmem=self.pmem, mem=self.mem, n_cap=self.n_cap, k_cap=k_cap,
-                iterations=2, run_ba=run_ba, has_mm=has_mm, mm_cap=MM_CAP)[1]
+                iterations=2, run_ba=run_ba, has_mm=has_mm, mm_cap=MM_CAP,
+                corr_version=version)[1]
         return program
 
     def _call_update_step(self, bucket, run_ba, has_mm, k_cap):
-        """Run the update program at ``bucket`` (``_run``)."""
+        """Run the update program at ``bucket`` (``_run``), behind the JAX
+        engine's cold-bucket guard: on the card, when the exact key has no
+        graph yet and a captured key covers it (``_cover``), the update
+        replays the cover, and the worker captures the exact key off this
+        thread (``_capture_later``); with no cover the key is captured
+        here, at first reach.  A cover's extra rows are masked and its
+        extra patch slots unused, so it computes what the exact program
+        does; the rows it writes past ``bucket`` are past the live count,
+        which the tables keep at zero (``append_edges``, ``permute_edges``)
+        and the cover writes as zeros.  ``buckets_seen`` counts the bucket
+        asked for, ``cover_served`` the updates a cover ran per exact
+        key."""
         self.buckets_seen[bucket] = self.buckets_seen.get(bucket, 0) + 1
-        return self._run(self._update_key(bucket, run_ba, has_mm, k_cap),
-                         self._update_program(bucket, run_ba, has_mm, k_cap),
+        key = self._update_key(bucket, run_ba, has_mm, k_cap)
+        if self.cuda_graphs and key not in self._graphs:
+            cover = self._cover(key)
+            if cover is not None:
+                self._capture_later(key)
+                self.cover_served[key] = self.cover_served.get(key, 0) + 1
+                return self._replay(cover)
+        return self._run(key, self._update_program(*key),
                          self._update_writes(bucket))
+
+    def _cover(self, key):
+        """The captured update key that serves ``key`` while its own graph
+        is missing (the JAX engine's rule, ``_call_update_step`` there):
+        the same local BA, magnitude and correlation version, a bucket and
+        a patch capacity at least ``key``'s; the smallest bucket, then the
+        smallest capacity.  None if no key covers it."""
+        bucket, run_ba, has_mm, k_cap, version = key
+        with self._graph_lock:
+            keys = list(self._graphs)
+        covers = [k for k in keys if isinstance(k[0], int)
+                  and (k[1], k[2], k[4]) == (run_ba, has_mm, version)
+                  and k[0] >= bucket and k[3] >= k_cap]
+        return min(covers, key=lambda k: (k[0], k[3]), default=None)
 
     def _update_key(self, bucket, run_ba, has_mm, k_cap):
         return (bucket, run_ba, has_mm, k_cap, corr_cuda.FUSED_VERSION)
@@ -534,7 +588,17 @@ class DPVO:
         if not self.cuda_graphs:
             return program()
         if key not in self._graphs:
-            self._graphs[key] = self._capture(key, program, written, draws)
+            # one capture into the pool at a time: the worker's running
+            # one ends first, its queued ones are dropped (asked again,
+            # they are scheduled again)
+            self._wait_captures(queued=False)
+            if key not in self._graphs:
+                self._graphs[key] = self._capture(key, program, written,
+                                                  draws)
+        return self._replay(key)
+
+    def _replay(self, key):
+        """Replay ``key``'s graph and count its launches.  -> its output."""
         graph, out, launches = self._graphs[key]
         graph.replay()
         _cuda.replayed(launches)
@@ -574,6 +638,7 @@ class DPVO:
         from the state and generator state found here, which are put back
         after each (``_kept``).  -> [(what it wrote and its output, cloned;
         the generator state after) for the replay, for the eager run]."""
+        self._wait_captures()
         res = []
         for graph in (True, False):
             with self._kept(written):
@@ -585,26 +650,147 @@ class DPVO:
         return res
 
     def _capture(self, key, program, written, draws=False):
-        """Capture ``program`` as a CUDA graph: the eager warm-up
-        (``_warm``), then the capture into the engine's graph pool, shared
-        by all its graphs (their replays never overlap).  A program that
+        """Capture ``program`` on this thread: the eager warm-up
+        (``_warm``), then the capture (``_record``).  A program that
         ``draws`` from the engine's generator has it registered with its
         graph: a replay draws what the eager program would draw from the
         same generator state, and advances it as much.  A failed capture
-        raises.  -> (graph, the program's output, the
-        launches one replay makes)."""
+        raises.  -> (graph, the program's output, the launches one replay
+        makes)."""
         t_c = time.perf_counter()
         self._warm(program, written)
+        entry = self._record(program, draws)
+        self.graph_capture_ms[key] = (time.perf_counter() - t_c) * 1e3
+        return entry
+
+    def _record(self, program, draws=False):
+        """Record ``program`` as a CUDA graph into the engine's graph pool,
+        shared by all its graphs (their replays never overlap: all run on
+        the engine's stream), on the capture stream, from the engine's
+        thread or the worker alike: ``capture_begin``/``capture_end`` in
+        thread-local mode, so that the other thread's allocations, pinned
+        copies, replays and stream or event waits meanwhile neither fail
+        the capture nor are refused (not ``torch.cuda.graph``, which
+        synchronises the card and empties the allocator's caches on
+        entering).  A device-wide synchronise from any thread while a
+        capture is open is refused by CUDA and fails it: the engine waits
+        on its stream (``_fence``).  -> (graph, output, launches one replay
+        makes)."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
         graph = torch.cuda.CUDAGraph()
         if draws:
             graph.register_generator_state(self.gen)
-        with _cuda.captured_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._graph_pool):
+        with (_cuda.captured_launches() as launches,
+              torch.cuda.stream(self._capture_stream)):
+            graph.capture_begin(pool=self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
                 out = program()
-        self.graph_capture_ms[key] = (time.perf_counter() - t_c) * 1e3
+            except BaseException:
+                # the program's error, not the capture's on ending; the
+                # failed graph is freed here, while no capture is open
+                # (freed later, its release fails the capture under way)
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                with contextlib.suppress(Exception):
+                    graph.reset()
+                raise
+            graph.capture_end()
         return graph, out, launches
+
+    # --- the cold-bucket guard's worker ------------------------------------
+
+    @staticmethod
+    def _capture_thread_init(device, stream, ctype):
+        """Ready the worker thread for captures: its current device, and
+        this thread's cuBLAS and cuSOLVER handles with their workspaces on
+        the capture stream (a throwaway product in each compute dtype and a
+        Cholesky solve), which a capture must not create."""
+        torch.cuda.set_device(device)
+        with torch.no_grad(), torch.cuda.stream(stream):
+            for dt in {torch.float32, ctype}:
+                a = torch.ones((16, 16), device=device, dtype=dt)
+                torch.nn.functional.linear(a, a, a[0]) @ a
+            eye = torch.eye(8, device=device)
+            torch.cholesky_solve(eye[:, :1], torch.linalg.cholesky_ex(eye)[0])
+
+    def _start_worker(self):
+        """The capture worker, started on first use: one thread, readied by
+        ``_capture_thread_init`` on the engine's device (by index: a thread
+        starts on device 0)."""
+        if self._worker is None:
+            device = self.device
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self._worker = futures.ThreadPoolExecutor(
+                1, thread_name_prefix="dpvo-capture",
+                initializer=self._capture_thread_init,
+                initargs=(device, self._capture_stream, self.ctype))
+        return self._worker
+
+    def _capture_later(self, key):
+        """Have the worker capture update ``key``, once: a key in flight is
+        not scheduled again, but its ask is noted, and the worker takes
+        the queued key asked for last first (``_capture_off_thread``)."""
+        self._asks += 1
+        with self._graph_lock:
+            self._last_ask[key] = self._asks
+            if key in self._in_flight:
+                return
+            self._in_flight[key] = futures.Future()
+        # one task per key scheduled: every queued key finds one
+        self._start_worker().submit(self._capture_off_thread)
+
+    def _capture_off_thread(self):
+        """A worker task: capture the queued update key asked for last
+        (``_record``), with no eager pass: the state is the frames', and
+        every library the program runs was loaded when its cover was
+        captured.  The graph is published into ``_graphs`` under the lock;
+        a failure stays in the key's future (``_check_captures``)."""
+        with self._graph_lock:
+            queued = [k for k, f in self._in_flight.items()
+                      if not (f.running() or f.done())]
+            if not queued:            # dropped (``_wait_captures``)
+                return
+            key = max(queued, key=self._last_ask.__getitem__)
+            fut = self._in_flight[key]
+            fut.set_running_or_notify_cancel()
+        t_c = time.perf_counter()
+        try:
+            entry = self._record(self._update_program(*key))
+        except BaseException as e:
+            fut.set_exception(e)
+            fut = None       # no cycle: the error's frames hold this one
+            return
+        ms = (time.perf_counter() - t_c) * 1e3
+        with self._graph_lock:
+            self._graphs[key] = entry
+            self.background_capture_ms[key] = ms
+        fut.set_result(None)
+
+    def _check_captures(self):
+        """Forget the finished background captures, and re-raise a failed
+        one's error here, with the worker's traceback."""
+        with self._graph_lock:
+            done = {k: f for k, f in self._in_flight.items() if f.done()}
+            self._in_flight = {k: f for k, f in self._in_flight.items()
+                               if k not in done}
+        for fut in done.values():
+            fut.result()
+
+    def _wait_captures(self, queued=True):
+        """Wait for the background captures in flight (two captures into
+        the pool may not run at once) and re-raise a failure here; with
+        ``queued=False`` only for the running one: the keys not started
+        are dropped, and a cover's next ask schedules them again."""
+        if not queued:
+            with self._graph_lock:
+                self._in_flight = {k: f for k, f in self._in_flight.items()
+                                   if not f.cancel()}
+        futures.wait(list(self._in_flight.values()))
+        self._check_captures()
 
     def graph_pool_bytes(self):
         """Bytes the card reserves for the engine's graph pool (from the
@@ -646,9 +832,13 @@ class DPVO:
         now, the largest bucket first, so that the shared graph pool is
         sized by the first capture; with ``cuda_graphs=False`` and on the
         CPU each program runs its eager warm-up alone (``_warm``) and
-        nothing is captured.  Under loop closure an update whose live edges
-        leave from more frames raises its patch capacity
-        (``_update_k_cap``): those keys are still captured at first reach.
+        nothing is captured.  It first waits for the background captures in
+        flight and skips the keys they published, and on the card it
+        starts the capture worker (``_start_worker``).  Under loop closure an
+        update whose live edges leave from more frames raises its patch
+        capacity (``_update_k_cap``): such a key is served by a captured
+        cover of at least its capacity where there is one
+        (``_call_update_step``), else captured at first reach.
 
         A graph holds the addresses of the state it was captured on, so the
         programs run on the engine's own state, with a well-posed slot 0
@@ -661,6 +851,7 @@ class DPVO:
         after)."""
         cfg, ds = self.cfg, self.ds
         t_all = time.perf_counter()
+        self._wait_captures()
         run_bas = (True, False) if cfg.LOOP_CLOSURE else (True,)
         has_mm = bool(cfg.ASYNC_KEYFRAME)
         buckets = sorted(self._plan_buckets(max_edges, around, steps),
@@ -703,6 +894,10 @@ class DPVO:
             for k, v in saved.items():
                 getattr(ds, k).copy_(v)
             self.gen.set_state(gen_state)
+        if self.cuda_graphs:
+            # the worker's one-off start (its thread's libraries) here,
+            # not in the first frame a cover serves
+            self._start_worker().submit(int).result()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out = dict(seconds=time.perf_counter() - t_all, ms=ms,
@@ -1016,7 +1211,9 @@ class DPVO:
 
     @torch.no_grad()
     def terminate(self):
-        """-> (poses (T, 7) xyz+quat numpy, tstamps (T,))."""
+        """-> (poses (T, 7) xyz+quat numpy, tstamps (T,)).  Waits for the
+        background captures (re-raising a failure) and stops the worker."""
+        self._wait_captures()
         if self.long_term_lc is not None:
             self.long_term_lc.terminate(self.n)
         if self.cfg.LOOP_CLOSURE:
@@ -1026,6 +1223,10 @@ class DPVO:
         for _ in range(12):
             self.ran_global_ba[self.n] = False
             self.update()
+        self._wait_captures()
+        if self._worker is not None:
+            self._worker.shutdown()
+            self._worker = None
         # lagged decisions still pending never apply
         self._mag_pending.clear()
         self._kf_queue.clear()

@@ -160,15 +160,17 @@ def track_frame_u8(ds: DeviceState, patchifier, gen, M, pmem, mem,
 # the hot loop: one optimization update
 # ---------------------------------------------------------------------------
 
-def _corr_act(ds, update_mod, coords, kk_mod, jj_mod):
+def _corr_act(ds, update_mod, coords, kk_mod, jj_mod, version=None):
     """The corr features of the edges, as CorrDense takes them: at
-    ``corr_cuda.FUSED_VERSION`` 13 the fused two-level correlation +
+    correlation version 13 (``version``, default
+    ``corr_cuda.FUSED_VERSION``) the fused two-level correlation +
     corr-encoder first matmul ("enc"), otherwise the two-level correlation
     of the gathered patch rows in that version's layout ("raw")."""
     K = ds.gmap.shape[0]
     g_all = ds.gmap.reshape(K, -1, ds.gmap.shape[-1])
     c = coords.permute(0, 3, 1, 2).contiguous()
-    version = corr_cuda.FUSED_VERSION
+    if version is None:
+        version = corr_cuda.FUSED_VERSION
     if version != 13:
         feat = corr_cuda.corr_fused(
             g_all[kk_mod], ds.fmap1, ds.fmap2, c, jj_mod.int(),
@@ -182,7 +184,8 @@ def _corr_act(ds, update_mod, coords, kk_mod, jj_mod):
 
 def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
                     t0, t1, mm_blob, M, pmem, mem, n_cap, k_cap,
-                    iterations=2, run_ba=True, has_mm=False, mm_cap=256):
+                    iterations=2, run_ba=True, has_mm=False, mm_cap=256,
+                    corr_version=None):
     """Reproject -> correlate -> recurrent update -> bundle adjust as one
     fixed-shape program over rows [0, bucket) of the device edge tables,
     the rows at or past ``e_num`` masked (``update_step_dev`` of the JAX
@@ -190,7 +193,8 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
     keyframe candidate's motion magnitude too, on the poses after local BA
     (``flowmag_two_blob`` of ``mm_blob``, (8 * mm_cap,) int32).
 
-    ``bucket``, ``run_ba``, ``has_mm``, ``k_cap`` are static; ``e_num``,
+    ``bucket``, ``run_ba``, ``has_mm``, ``k_cap`` and ``corr_version``
+    (``_corr_act``'s) are static; ``e_num``,
     ``t0``, ``t1`` are ints or integer device scalars, so the program
     reads no value on the host and can be captured in a CUDA graph.
     Masked rows are neutral: their indices clamp to 0, their target and
@@ -234,7 +238,7 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
     coords = pops.transform(ds.poses, ds.patches, ds.intrinsics, ii, jj, kk,
                             Gij=Gij_tab[gid_o_ij])          # (E, P, P, 2)
     kk_mod = kk % (M * pmem)
-    corr = _corr_act(ds, update_mod, coords, kk_mod, jj % mem)
+    corr = _corr_act(ds, update_mod, coords, kk_mod, jj % mem, corr_version)
     ctx = ds.imap[kk_mod].float()
     meta = tuple((perm, agg_cuda.skip_masked(gid_s, valid[perm], g_cap),
                   gid_o) for perm, gid_s, gid_o in (cm_kk, cm_ij))

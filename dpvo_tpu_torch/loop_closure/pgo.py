@@ -29,6 +29,12 @@ CG_ITERS = 100
 CG_TOL = 1e-8
 
 
+def se3_to_sim3_log_inv(poses_se3):
+    """SE3 poses (n, 7) -> the Sim3 log of their inverses (n, 7 tangent):
+    the variables ``perform_updates`` starts from."""
+    return lie.sim3_log(lie.sim3_inv(lie.se3_to_sim3(poses_se3)))
+
+
 def _solve3(W, t):
     """W^-1 t for (..., 3, 3) W by Cramer's rule: ``torch.linalg.solve``'s
     forward-mode derivative is wrong under ``vmap`` (it mixes up the
@@ -139,7 +145,7 @@ def perform_updates(poses_se3, dSloop, ii_loop, jj_loop, iters=30, ep=0.0,
     poses = torch.as_tensor(np.concatenate([poses, pad]), device=dev)
     n = poses.shape[0]
     pred_inv = lie.sim3_inv(lie.se3_to_sim3(poses))
-    Ginv = lie.sim3_log(pred_inv)
+    Ginv = se3_to_sim3_log_inv(poses)
 
     # odometry constants: dSij = Tj * Ti^-1 for consecutive (k, k-1)
     kk = torch.arange(1, n, device=dev)

@@ -1,7 +1,8 @@
 """Patchifier, centroid selection and the flax-like initialisers (PyTorch).
 
 Counterpart of ``dpvo_tpu/models/vonet.py``: the two CNN encoders and the
-patch extraction at sampled centroids.  Layouts are channels-last like the
+patch extraction at sampled centroids, and ``VONet``, the Patchifier and
+the Update operator in one module.  Layouts are channels-last like the
 JAX package.  ``init_flax_like`` draws a module's weights as flax
 initialises the JAX package's (``lecun_normal`` kernels, zero biases,
 LayerNorm ones and zeros), so a from-scratch training run starts from the
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 
 from ..ops import corr as corr_ops
 from .encoder import BasicEncoder4
-from .update import DIM, CorrDense
+from .update import DIM, CorrDense, Update
 
 
 def normalize_images(images_u8):
@@ -98,6 +99,26 @@ def select_centroids(gen, strat, n, h, w, M, gradient=None):
         raise NotImplementedError(
             f"Patch centroid selection not implemented: {strat}")
     return torch.stack([x, y], dim=-1).float()
+
+
+class VONet(nn.Module):
+    """The Patchifier and the Update operator in one module, under the JAX
+    VONet's names (``patchify``, ``update``), so its parameter tree loads
+    whole (``utils.checkpoint.flax_to_state_dict``)."""
+
+    def __init__(self, patch_size=3):
+        super().__init__()
+        self.P = patch_size
+        self.RES = 4
+        self.patchify = Patchifier(patch_size)
+        self.update = Update(patch_size)
+
+    def forward(self, images, coords, net, inp, corr, ii, jj, kk,
+                valid=None):
+        """Both submodules once, as the JAX ``__call__`` wires them: ->
+        (the Patchifier's outputs, the Update's)."""
+        return (self.patchify(images, coords),
+                self.update(net, inp, corr, ii, jj, kk, valid))
 
 
 @torch.no_grad()

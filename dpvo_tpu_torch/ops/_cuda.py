@@ -8,10 +8,12 @@ carries a hash of the sources, headers and flags, so an edited file
 rebuilds.
 
 ``launches`` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, so a run can show which kernels its path went through.
-A CUDA graph capture launches nothing: ``captured_launches`` takes the
-counts its wrappers added back out, and each replay of the graph adds them
-(``replayed``).
+launches its kernel (``count``), so a run can show which kernels its path
+went through.  A CUDA graph capture launches nothing: inside
+``captured_launches`` the wrappers called on that thread count into the
+capture's own counter instead, and each replay of the graph adds it
+(``replayed``); other threads go on counting into ``launches``, so a
+capture in a worker thread leaves the engine thread's counts exact.
 """
 from __future__ import annotations
 
@@ -53,23 +55,32 @@ _SIGNATURES = {
 }
 
 
+_capturing = threading.local()   # .counter: this thread's capture's counts
+
+
 def reset_launches():
     launches.clear()
 
 
+def count(name: str):
+    """Count one launch of kernel ``name``: into the capture this thread is
+    recording (``captured_launches``), else into ``launches``."""
+    captured = getattr(_capturing, "counter", None)
+    (launches if captured is None else captured)[name] += 1
+
+
 @contextlib.contextmanager
 def captured_launches():
-    """Around a CUDA graph capture: yields a Counter that, when the block
-    ends, holds the launches its wrappers counted, which are taken back out
+    """Around a CUDA graph capture: yields a Counter of the launches that
+    wrappers called on this thread count inside the block, which stay out
     of ``launches`` (the capture records the kernels, it runs none)."""
-    before = launches.copy()
     captured: collections.Counter = collections.Counter()
+    outer = getattr(_capturing, "counter", None)
+    _capturing.counter = captured
     try:
         yield captured
     finally:
-        captured.update(launches - before)
-        launches.clear()
-        launches.update(before)
+        _capturing.counter = outer
 
 
 def replayed(captured: collections.Counter):

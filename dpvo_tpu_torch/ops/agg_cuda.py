@@ -126,7 +126,7 @@ def segment_softmax_sums(gate_sorted, vals_sorted, shift, gid_sorted, g_cap):
         gid_sorted.data_ptr(), out.data_ptr(), E, D, G,
         _cuda.stream_ptr(out.device))
     _cuda.check(code, "segment_softmax_sums")
-    _cuda.launches["segment_softmax_sums"] += 1
+    _cuda.count("segment_softmax_sums")
     return out
 
 
@@ -145,5 +145,5 @@ def segment_sums(vals_sorted, gid_sorted, g_cap):
         vals_sorted.data_ptr(), gid_sorted.data_ptr(), out.data_ptr(), E, D,
         G, _cuda.stream_ptr(out.device))
     _cuda.check(code, "segment_sums")
-    _cuda.launches["segment_sums"] += 1
+    _cuda.count("segment_sums")
     return out

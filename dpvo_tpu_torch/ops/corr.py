@@ -145,6 +145,16 @@ def corr(gmap, fmap, coords, kidx, fidx, radius=3, pad=0):
     return out.permute(0, 4, 3, 1, 2)
 
 
+def corr_stack(gmap, pyramid, coords, kidx, fidx, radius=3):
+    """Two-level correlation flattened for the update operator: each
+    ``(lvl, fmap)`` of ``pyramid`` correlates at ``coords / lvl`` and the
+    levels stack on the last axis before flattening -> (E,
+    L*(2R+1)^2*P*P) fp32."""
+    outs = [corr(gmap, fmap, coords / lvl, kidx, fidx, radius)
+            for lvl, fmap in pyramid]
+    return torch.stack(outs, dim=-1).reshape(coords.shape[0], -1)
+
+
 def avg_pool2d(x, k):
     """Average pooling with stride = kernel, NHWC."""
     if k == 1:

@@ -375,7 +375,7 @@ def corr_enc(g_all, kk_rows, w_raw, fmap1_padded, fmap2_padded, coords,
         coords.data_ptr(), out.data_ptr(), E, Hp1, Wp1, Hp2, Wp2, DIMo,
         _cuda.stream_ptr(out.device))
     _cuda.check(code, "corr_enc")
-    _cuda.launches["corr_enc"] += 1
+    _cuda.count("corr_enc")
     return out
 
 
@@ -417,7 +417,7 @@ def _corr_raw(name, levels, layout, shape, g_pre, fmaps, coords, ff_rows,
         n_live, f1.shape[1], f1.shape[2], f2.shape[1], f2.shape[2],
         _cuda.stream_ptr(out.device))
     _cuda.check(code, name)
-    _cuda.launches[name] += 1
+    _cuda.count(name)
     return out
 
 
@@ -557,5 +557,5 @@ def corr_probe(g_pre, fmap1_padded, fmap2_padded, coords, ff_rows, probe):
         out.data_ptr(), float("nan"), E, *fmap1_padded.shape[1:3],
         *fmap2_padded.shape[1:3], _cuda.stream_ptr(out.device))
     _cuda.check(code, f"corr_probe ({probe})")
-    _cuda.launches[f"corr_probe.{probe}"] += 1
+    _cuda.count(f"corr_probe.{probe}")
     return out

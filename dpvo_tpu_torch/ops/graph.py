@@ -1,10 +1,12 @@
 """Edge-graph utilities for the patch graph (plain PyTorch).
 
 Counterpart of ``dpvo_tpu/ops/graph.py``: for every edge, the previous /
-next edge sharing its patch ``kk``, ordered by target frame ``jj``.
+next edge sharing its patch ``kk``, ordered by target frame ``jj``;
+``neighbors_host`` computes the same in numpy for edge tables on the host.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .scatter import INT_MAX
@@ -45,6 +47,25 @@ def neighbors_from_order(kk_m, valid, order):
     jx = torch.empty(E, dtype=torch.int64, device=kk_m.device)
     ix[order] = prev_idx.long()
     jx[order] = next_idx.long()
+    return ix, jx
+
+
+def neighbors_host(kk, jj, e_num):
+    """``neighbors`` in numpy, for edge tables kept on the host: rows at or
+    past ``e_num`` are invalid.  -> (ix, jx) (E,) int32, -1 where none."""
+    E = len(kk)
+    kk_m = np.asarray(kk, np.int64).copy()
+    kk_m[e_num:] = np.iinfo(np.int64).max
+    order = np.lexsort((np.asarray(jj), kk_m))
+    kk_sorted = kk_m[order]
+    valid_sorted = order < e_num
+    same = kk_sorted[1:] == kk_sorted[:-1]
+    same_prev = np.concatenate([[False], same]) & valid_sorted
+    same_next = np.concatenate([same, [False]]) & valid_sorted
+    ix = np.full(E, -1, np.int32)
+    jx = np.full(E, -1, np.int32)
+    ix[order] = np.where(same_prev, np.roll(order, 1), -1)
+    jx[order] = np.where(same_next, np.roll(order, -1), -1)
     return ix, jx
 
 

@@ -1,12 +1,18 @@
-"""Timing utilities: a section timer and a call benchmark.
+"""Timing utilities: a section timer, a call benchmark and a profiler
+trace.
 
-Counterpart of ``dpvo_tpu/utils/timing.py``.  On the card both fence the
-device with ``torch.cuda.synchronize`` around a host clock, so the time
-covers the queued kernels and not only their launch; on the CPU there is
-nothing to fence.
+Counterpart of ``dpvo_tpu/utils/timing.py``.  On the card the timer and
+the benchmark wait for the current stream around a host clock, so the
+time covers the queued kernels and not only their launch; on the CPU
+there is nothing to fence.  The fence is the stream's, not the device's:
+a device-wide ``torch.cuda.synchronize`` while the engine's capture
+worker holds a CUDA graph capture open (``DPVO``'s cold-bucket guard) is
+refused by CUDA and fails that capture.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 from contextlib import ContextDecorator
 
@@ -17,7 +23,7 @@ all_times = []
 
 def _fence():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
 
 
 class Timer(ContextDecorator):
@@ -57,3 +63,30 @@ def benchmark(fn, *args, warmup=3, iters=10):
         times.append((time.perf_counter() - t0) * 1000.0)
     times.sort()
     return times[len(times) // 2]
+
+
+class profile_trace:
+    """``torch.profiler`` over the block (host, and the card's kernels where
+    there is one), written on leaving as a Chrome trace,
+    ``logdir/trace.json`` (view it in Perfetto or ``chrome://tracing``).
+    The default ``logdir`` is ``dpvo_tpu_torch_trace`` in the temporary
+    directory."""
+
+    def __init__(self, logdir=None):
+        self.logdir = logdir or os.path.join(tempfile.gettempdir(),
+                                             "dpvo_tpu_torch_trace")
+        self.path = os.path.join(self.logdir, "trace.json")
+
+    def __enter__(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        os.makedirs(self.logdir, exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        return False

@@ -7,8 +7,9 @@ The port's counterpart of ``bench_ablate.py``, at its settings: the engine
 of ``bench_profile_torch.py`` (480x640, ``BUFFER_SIZE=256``, bf16,
 ``EDGE_CAPACITY=57344``, the rest default, seeded random weights, motion
 probe forced), 34 warm frames (``quick``: 12), then frames until 8 in a
-row capture no new update graph, then 20 timed frames ended by a device
-synchronise (``quick``: 5), in seven runs:
+row capture no new update graph, then 20 timed frames ended by a wait on
+the stream (``quick``: 5; not a device synchronise, which would fail a
+capture the engine's worker may hold), in seven runs:
 
 - full;
 - no merge: decisions are made but never applied (edges still retire);
@@ -99,12 +100,12 @@ def run(dev, label, patch, ctx, n_warm=34, n_bench=20):
             slam(t, frame(t), intr)
             t += 1
             quiet = quiet + 1 if len(slam._graphs) == n_graphs else 0
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         _cuda.reset_launches()
         t0 = time.perf_counter()
         for t in range(t, t + n_bench):
             slam(t, frame(t), intr)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         dt = (time.perf_counter() - t0) / n_bench
     counts = dict(_cuda.launches)
     print(f"[bench_ablate] {label}: {1e3 * dt:.3f} ms/frame ({1 / dt:.3f} "

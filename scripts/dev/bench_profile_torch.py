@@ -7,7 +7,7 @@ The port's counterpart of ``bench_profile.py``: its engine (480x640,
 ``BUFFER_SIZE=256``, bf16, ``EDGE_CAPACITY=57344``, the rest default,
 seeded random weights, motion probe forced) tracks 26 frames of a random
 texture rolling 4 px per frame, then each call runs alone on that state,
-timed on the host clock around the call and a device synchronise (median
+timed on the host clock around the call and a wait on the stream (median
 of 10, ``quick`` 3): ``track_frame_u8`` (the engine's tracking program,
 run eagerly on its staged inputs); ``update_step`` with the kernels,
 with the plain correlation swapped in (``chip_smoke.plain_correlation``)
@@ -64,19 +64,20 @@ def launch_note(counts, per=1):
 
 
 def wall(name, fn, reps):
-    """Median wall ms of ``fn()`` with a device synchronise, over ``reps``
+    """Median wall ms of ``fn()`` with a wait on the stream (not the device:
+    that would fail a capture the engine's worker may hold), over ``reps``
     calls after one warm call; prints the line with the K2/K3/K4 launches
     of the timed calls.  -> (ms, launches)."""
     import torch
     from dpvo_tpu_torch.ops import _cuda
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     _cuda.reset_launches()
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     counts = dict(_cuda.launches)
     ms = float(np.median(ts))
@@ -92,7 +93,7 @@ def profile(dev, reps=10):
     from dpvo_tpu_torch.engine import kernels
     slam, frame, intr = bench_engine(dev)
     cfg, ds, hs = slam.cfg, slam.ds, slam.hs
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     print(f"[bench_profile] steady state after {N_STEADY} frames: "
           f"n={slam.n} e_num={hs.e_num}", flush=True)
     t0, t1 = max(slam.n - cfg.OPTIMIZATION_WINDOW, 1), slam.n
@@ -113,7 +114,7 @@ def profile(dev, reps=10):
                                         t1, run_ba=run_ba, **step)), reps)
         i = slam.n - cfg.KEYFRAME_INDEX - 1
         j = slam.n - cfg.KEYFRAME_INDEX + 1
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         tc = time.perf_counter()
         m = slam.motionmag(i, j)
         cold = (time.perf_counter() - tc) * 1e3

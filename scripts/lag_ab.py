@@ -61,13 +61,13 @@ def main():
         feed = bench_torch.FrameFeed(480, 640, dev)
         for t in range(40):
             slam(t, feed.get(t), intr)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         prof = cProfile.Profile()
         t0 = time.perf_counter()
         prof.enable()
         for t in range(40, 60):
             slam(t, feed.get(t), intr)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         prof.disable()
         wall = (time.perf_counter() - t0) * 1e3 / 20
         s = io.StringIO()

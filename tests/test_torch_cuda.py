@@ -36,8 +36,15 @@ its kernels' launches; so do its tracking program (from the same generator
 state, which the replay advances as far) and its keyframe merge; and
 ``DPVO.precompile`` leaves the engine's state and generator bitwise as it
 found them, before the first frame and mid-drive, and the drive it
-precompiled for bitwise the same as one without.
+precompiled for bitwise the same as one without.  The cold-bucket guard:
+a cover's replay against the exact key's on one state (TOL_COVER_CARD), a
+background capture held open while the engine thread replays, copies and
+waits (the capture lands and replays bitwise as its eager program), and a
+failure injected into the worker's capture raising on the engine thread;
+``utils.timing.Timer`` around a frame while a capture is open.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -522,6 +529,219 @@ def test_precompile_leaves_the_state_unchanged(dev):
     assert slam.graph_pool_bytes() > 0
     for a, b in zip(vars(ref.ds).values(), vars(slam.ds).values()):
         assert torch.equal(a, b)
+
+
+# the cold-bucket guard: a cover's replay against the exact key's differs
+# by the summation order of kernels launched at another row count (fp32,
+# TF32 off)
+TOL_COVER_CARD = 1e-5    # on an H100: 1.9e-6 (depths), the rest 0 to 2.4e-7
+UPDATE_WRITES = ("net", "target", "weight", "poses", "patches")
+
+
+def _guard_frame(slam, t):
+    """Frame ``t`` of ``_guard_engine``'s drive."""
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+         np.array([64.0, 64.0, 64.0, 48.0]))
+
+
+def _guard_engine(dev, frames=12):
+    """The small lagged engine (fp32) on a two-step ladder: EDGE_CAPACITY
+    1536 with BUCKET_FLOOR 1024, so its updates ask for bucket 1024 and
+    1536 covers them; after ``frames`` frames, the 1024 key captured at
+    first reach and the update of its live state staged.  -> (engine, the
+    exact key, the cover key (1536, twice the patch capacity), restore:
+    puts back what the update writes)."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=False, EDGE_CAPACITY=1536,
+                   BUCKET_FLOOR=1024, BA_WINDOW_CAP=8, KEYFRAME_THRESH=0.0,
+                   ASYNC_KEYFRAME=True, ASYNC_KEYFRAME_LAG=3,
+                   ASYNC_KEYFRAME_BATCH=2)
+    slam = DPVO(cfg, ht=96, wd=128, device=dev, seed=2)
+    slam.motion_probe = lambda: 100.0
+    for t in range(frames):
+        _guard_frame(slam, t)
+    k_cap = slam._update_k_cap()
+    exact = slam._update_key(1024, True, True, k_cap)
+    assert exact in slam._graphs and slam.hs.e_num < 1024
+    blob, tcand = slam._mm_blob()
+    assert tcand is not None
+    slam._stage_update(slam.hs.e_num, slam.n - 5, slam.n, blob)
+    saved = [getattr(slam.ds, k).clone() for k in UPDATE_WRITES]
+
+    def restore():
+        for k, v in zip(UPDATE_WRITES, saved):
+            getattr(slam.ds, k).copy_(v)
+    return (slam, exact, slam._update_key(1536, True, True, 2 * k_cap),
+            restore)
+
+
+def _run_key(slam, key):
+    return slam._run(key, slam._update_program(*key),
+                     slam._update_writes(key[0]))
+
+
+def test_cover_replay_vs_exact_replay(dev):
+    """On one state, the cover's replay (bucket 1536, twice the patch
+    capacity) against the exact key's (1024): the live rows, poses, depths
+    and magnitude within TOL_COVER_CARD, the rows past the live count
+    zero."""
+    slam, exact, cover, restore = _guard_engine(dev)
+    e = slam.hs.e_num
+    outs = []
+    for key in (exact, cover):
+        restore()
+        mag = _run_key(slam, key)
+        torch.cuda.synchronize()
+        ds = slam.ds
+        outs.append([getattr(ds, k)[:e].clone() for k in UPDATE_WRITES[:3]]
+                    + [getattr(ds, k).clone() for k in UPDATE_WRITES[3:]]
+                    + [mag.clone()])
+        if key == cover:
+            for k in UPDATE_WRITES[:3]:
+                assert not getattr(slam.ds, k)[e:1536].any()
+    restore()
+    errs = {k: (a - b).abs().max().item()
+            for k, a, b in zip(UPDATE_WRITES + ("mag",), *outs)}
+    print(f"cover against exact, max abs error: {errs}")
+    assert max(errs.values()) <= TOL_COVER_CARD, errs
+
+
+def _gated(slam, gate, entered):
+    """Make the worker's update programs wait for ``gate`` inside the
+    capture (``entered`` set there), so the test acts while it is open."""
+    real = slam._update_program
+    main = threading.current_thread()
+
+    def program(*key):
+        run = real(*key)
+
+        def gated_run():
+            if threading.current_thread() is not main:
+                entered.set()
+                assert gate.wait(60)
+            return run()
+        return gated_run
+    slam._update_program = program
+    return real
+
+
+def test_background_capture_while_the_engine_works(dev):
+    """A cold key with a cover: the cover replays and the worker captures
+    the exact key; while that capture is open the engine thread replays the
+    cover again, stages inputs through pinned copies (under sync debug mode
+    "error": no host synchronisation), records and waits on an event and
+    synchronises its stream.  The capture lands, counts its launches as a
+    capture on this thread would, the replays alone add to the counts, and
+    the exact key's replay then equals its eager program bitwise.  The
+    engine's device is named without an index, as ``device="cuda"``
+    gives it: the worker finds the index."""
+    slam, exact, cover, restore = _guard_engine(torch.device("cuda"))
+    restore()
+    _run_key(slam, cover)                         # the cover, captured here
+    del slam._graphs[exact]
+    gate, entered = threading.Event(), threading.Event()
+    real = _gated(slam, gate, entered)
+    _cuda.reset_launches()
+    restore()
+    slam._call_update_step(1024, True, True, exact[3])
+    assert entered.wait(60) and exact in slam._in_flight
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            slam._call_update_step(1024, True, True, exact[3])
+            slam._stage_update(slam.hs.e_num, slam.n - 5, slam.n,
+                               slam._mm_blob()[0])
+            slam._dev(np.arange(64, dtype=np.int32))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    torch.cuda.current_stream().synchronize()
+    assert not slam._in_flight[exact].done()     # still open until now
+    gate.set()
+    slam._wait_captures()
+    slam._update_program = real
+    assert exact in slam._graphs and slam.background_capture_ms[exact] > 0
+    assert slam.cover_served[exact] == 3
+    per_replay = slam._graphs[cover][2]
+    assert slam._graphs[exact][2] == per_replay
+    assert dict(_cuda.launches) == {k: 3 * v for k, v in per_replay.items()}
+    (a, _), (b, _) = slam._replay_against_eager(
+        exact, real(*exact), slam._update_writes(1024))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    slam.terminate()
+    assert slam._worker is None
+
+
+def test_timer_around_a_frame_while_a_capture_is_open(dev):
+    """``utils.timing.Timer`` around a frame (as ``demo_torch.py --timeit``
+    wraps each) while the worker holds a capture open: the timer's fences
+    wait on the stream, so the capture lands and the next update raises
+    nothing (a device-wide synchronise would fail the capture, and the
+    update would re-raise its error)."""
+    from dpvo_tpu_torch.utils.timing import Timer
+    slam, exact, cover, restore = _guard_engine(dev)
+    restore()
+    _run_key(slam, cover)
+    del slam._graphs[exact]
+    gate, entered = threading.Event(), threading.Event()
+    real = _gated(slam, gate, entered)
+    restore()
+    slam._call_update_step(1024, True, True, exact[3])
+    assert entered.wait(60)
+    # a frame whose update has no cover captures here, after the open
+    # capture: the gate opens on its own then
+    threading.Timer(2.0, gate.set).start()
+    with Timer("frame while a capture is open"):
+        assert not slam._in_flight[exact].done()
+        _guard_frame(slam, 12)
+    gate.set()
+    slam._wait_captures()
+    slam._update_program = real
+    assert exact in slam._graphs and slam.background_capture_ms[exact] > 0
+    slam.update()
+    _guard_frame(slam, 13)
+    slam.terminate()
+
+
+def test_failed_background_capture_raises_on_the_engine_thread(dev):
+    """A capture that fails in the worker raises at the engine's next
+    update with the worker's error; the next cold call schedules the key
+    again and that capture lands."""
+    slam, exact, cover, restore = _guard_engine(dev)
+    restore()
+    _run_key(slam, cover)
+    del slam._graphs[exact]
+    real = slam._update_program
+    main = threading.current_thread()
+
+    def failing(*key):
+        run = real(*key)
+
+        def failing_run():
+            if threading.current_thread() is not main:
+                raise RuntimeError("injected capture failure")
+            return run()
+        return failing_run
+    slam._update_program = failing
+    slam._call_update_step(1024, True, True, exact[3])
+    assert isinstance(slam._in_flight[exact].exception(timeout=60),
+                      RuntimeError)
+    with pytest.raises(RuntimeError, match="injected capture failure"):
+        slam.update()
+    slam._update_program = real
+    restore()
+    slam._call_update_step(1024, True, True, exact[3])
+    slam._wait_captures()
+    assert exact in slam._graphs
+    slam.terminate()
 
 
 def _drifted_loop(n, seed=2, noise=0.01):

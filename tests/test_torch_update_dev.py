@@ -259,8 +259,9 @@ def test_captured_launches_count_per_replay():
         _cuda.reset_launches()
         _cuda.launches["corr_enc"] += 2
         with _cuda.captured_launches() as captured:
-            _cuda.launches["corr_enc"] += 1
-            _cuda.launches["segment_sums"] += 2
+            _cuda.count("corr_enc")           # as a wrapper counts
+            _cuda.count("segment_sums")
+            _cuda.count("segment_sums")
         assert dict(_cuda.launches) == {"corr_enc": 2}
         assert dict(captured) == {"corr_enc": 1, "segment_sums": 2}
         for _ in range(3):

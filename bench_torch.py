@@ -23,11 +23,11 @@ until the 5 best agree within 10% and the best is 3 windows old, at most
 ``bench.py``'s JSON line (``value`` is the median of the 5 best windows'
 frames/sec of the merge regime, ``value_retain`` the retain regime's);
 each regime's live-edge count goes to stderr.  With ``DPVO_TIMING=1`` the
-engine's phase timers run over the windows (host dispatch time: no device
-synchronise at the phases' ends, as ``bench.py`` measures them;
-``DPVO_TIMING=block`` fences each phase with one instead), and each
-regime logs ``timing_report()`` to stderr after its windows; the JSON line
-is the same.  The engine replays its tracking, update and merge programs
+engine's tracing runs over the windows (``utils.timing``: host spans and
+the card's stamps, no fence), and each regime logs ``timing_report()``
+(host ms of each phase) and ``timing_report("device")`` (device ms of the
+programs each phase ran) to stderr after its windows; the JSON line is
+the same.  The engine replays its tracking, update and merge programs
 as CUDA graphs.  As ``bench.py`` does, each regime calls
 ``DPVO.precompile`` before its first frame (``max_edges`` 20480 for merge,
 46000 for retain) and again after the warm frames (``around`` the live
@@ -108,7 +108,7 @@ class FrameFeed:
 
 def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                n_bench=40, min_windows=9, max_windows=24, profile_frames=0,
-               seed=0, timing=False, timing_block=False, cuda_graphs=True,
+               seed=0, timing=False, cuda_graphs=True,
                **overrides):
     """One pinned-regime capture.  -> dict: ``fps`` (median of the 5 best
     windows), ``median_fps``, ``windows`` (frames/sec each), ``edges``
@@ -117,11 +117,11 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     ``colors`` (the map before terminate()), ``poses`` and ``tstamps``
     (terminate()'s), and with ``profile_frames`` the ``profile`` of that
     many more frames run under torch.profiler: (profiler, wall ms,
-    frames).  With ``timing`` the engine's phase timers run over the
-    windows (``timing_block``: each phase fenced by a device synchronise;
-    off, the host's dispatch time) and ``timing`` holds their
-    ``timing_report()``, else None.  ``cuda_graphs`` is the engine's
-    (False: the programs run eagerly on the card).  ``DPVO.precompile``
+    frames).  With ``timing`` the engine's tracing runs over the windows
+    and ``timing`` holds ``timing_report()`` (each phase's host ms) and
+    ``device_timing`` ``timing_report("device")``, else both are None.
+    ``cuda_graphs`` is the engine's (False: the programs run eagerly on
+    the card).  ``DPVO.precompile``
     runs where ``bench.py`` calls it, before the first frame and after the
     warm frames, and ``graphs["precompile"]`` holds both calls' results.
     ``graphs`` also holds the updates
@@ -169,7 +169,6 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
     sync()
     ready(around=slam.hs.e_num, steps=2)
     slam.enable_timing = timing
-    slam.timing_block = timing_block
 
     n_captured = len(slam.graph_capture_ms)
     n_background = len(slam.background_capture_ms)
@@ -193,12 +192,15 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                 break
     window_captures = len(slam.graph_capture_ms) - n_captured
     window_background = len(slam.background_capture_ms) - n_background
-    report = None
+    report = device_report = None
     if timing:
         slam.enable_timing = False
         report = slam.timing_report()
+        device_report = slam.timing_report("device")
         for k, (ms, cnt) in report.items():
-            log(f"  {k:20s} {ms:8.2f} ms  x{cnt}")
+            dev_ms, dev_cnt = device_report.get(k, (float("nan"), 0))
+            log(f"  {k:20s} {ms:8.2f} ms  x{cnt}  device {dev_ms:8.2f} ms  "
+                f"x{dev_cnt}")
 
     profile = None
     if profile_frames:
@@ -234,7 +236,8 @@ def run_regime(regime, device="cuda", ht=480, wd=640, n_warm=30,
                 edges_range=(min(per_frame), max(per_frame)),
                 keyframes=keyframes,
                 points=points, colors=colors, poses=poses, tstamps=tstamps,
-                profile=profile, timing=report, graphs=graphs)
+                profile=profile, timing=report,
+                device_timing=device_report, graphs=graphs)
 
 
 def bench_line(results):
@@ -259,12 +262,11 @@ def main(argv=None):
                     help="torch device (default: the GPU; raises without)")
     args = ap.parse_args(argv)
     regimes = os.environ.get("DPVO_BENCH_REGIMES", "merge,retain")
-    timing = os.environ.get("DPVO_TIMING", "")
+    timing = bool(os.environ.get("DPVO_TIMING", ""))
     results = {}
     for regime in (r.strip() for r in regimes.split(",")):
         r = results[regime] = run_regime(regime, device=args.device,
-                                         timing=bool(timing),
-                                         timing_block=timing == "block")
+                                         timing=timing)
         g = r["graphs"]
         log(f"[{regime}] live edges at the windows' ends: {r['edges']}; "
             f"updates per bucket {g['buckets']}; graphs "

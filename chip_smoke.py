@@ -31,7 +31,13 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    ``scripts/dev/corr_variants_torch.py``'s probe entry point at 6144
    edges (scattered pixels: the per-window path), each probe's time
    beside K1 raw with its fit share, and each probe against its plain
-   version on those inputs;
+   version on those inputs; and the tracing's stamp kernels
+   (``utils.timing.stamp_set``, ``stamp_graph``) against their plain
+   versions on a ring of the engine's shape (``RING_ROWS`` rows and the
+   discard row), over an engine-like sequence of traced calls whose slots
+   wrap past ``RING_ROWS``, parks and untraced frames: the tags, the slot
+   cell and the set of cells written exactly equal, the card's times in
+   launch order;
 3. agreement: the fp32 engine with the kernels on the card against the
    same engine with the plain versions on the CPU, on 16 small frames
    (same seeded weights, scripted centroids, fixed depth), in the
@@ -50,7 +56,12 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    edges, each kernel's launch count (every kernel of the drive's path >
    0, the other correlation kernel 0), the box fit share at one eager
    update on the drive's end state (after ``terminate()``) and finite
-   poses;
+   poses; and the stamp launches a frame, split at the profiled frames
+   (traced) from the frames before (untraced): untraced, no eager
+   ``stamp_set`` and exactly the graphs' own ``stamp_graph`` (2 a track
+   or merge run, 5 an update run); traced, besides those one ``pre``
+   ``stamp_set`` a program run and one park a call, every run read back
+   from the card with no stamp lost;
 5. loop closure (``LOOP_CLOSURE=True``, ``configs/default.yaml``'s
    setting): the fp32 engine on the card against the CPU engine on 45
    small frames (``REMOVAL_WINDOW=6``, ``GLOBAL_OPT_FREQ=10``, so global BA
@@ -187,12 +198,13 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    ms per sharded update; the data-parallel train step, NCCL world 1 and
    two gloo ranks against one process;
 13. tools (the measurement layer): ``bench_torch.run_regime``'s merge
-   regime for two windows with the engine's phase timers on, once timing
-   host dispatch and once fencing each phase with a device synchronise
-   (all nine phases present; the phases no other phase holds,
+   regime for two windows with the engine's tracing on, each phase's host
+   ms from its spans and the device ms of the programs it ran from the
+   card's stamps (all nine phases on the host, the four that run a
+   program on the device; the phases no other phase holds,
    ``track_frame``, ``append_factors``, ``update/*`` and ``keyframe``,
-   summing to no more than the windows' wall time); ``DPVO.motionmag`` on
-   the card against the CPU for every frame pair with edges after the
+   summing to no more than the windows' wall time in each);
+   ``DPVO.motionmag`` on the card against the CPU for every frame pair with edges after the
    small never-merge drive, on the CPU engine's state (rtol 1e-4, atol
    1e-5; the drives' own states compared beside it); then each dev bench
    (``scripts/dev/*_torch.py``, ``benchmarks/*_torch.py``) at its quick
@@ -219,6 +231,7 @@ Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -259,6 +272,11 @@ KERNELS = {
     **{f"corr_probe.{p}": dict(source="dpvo_tpu_torch/csrc/corr_raw.cu",
                                replaces="scripts/dev/corr_variants.py:549")
        for p in PROBES},
+    # the tracing's device clock: the JAX engine times from the host, so
+    # these replace no TPU kernel
+    "stamp_set": dict(source="dpvo_tpu_torch/csrc/stamp.cu", replaces=None),
+    "stamp_graph": dict(source="dpvo_tpu_torch/csrc/stamp.cu",
+                        replaces=None),
 }
 
 
@@ -891,7 +909,101 @@ def phase_kernels(dev):
     for layout in ("raw", "v12"):
         check_raw(results, key, "corr_fused", layout, g_all[kk.long()], f1,
                   f2, coords, ff)
+    del args, g_all, kk, f1, f2, coords, ff
+    check_stamps(results, dev)
     return results
+
+
+def stamp_sequence(rows):
+    """The stamp launches of an engine over traced calls whose slots wrap
+    past ``rows``: [(kind, slot, col)], ``set`` the eager ``stamp_set``
+    (slot -1, col -1: the park at a call's end), ``graph`` a graph's
+    ``stamp_graph``.  Untraced frames (parked slot: the discard row) come
+    first and after each call; a last traced track run lands on the row of
+    an update two laps back, whose update-only cells keep the old tag."""
+    from dpvo_tpu_torch.utils import timing
+    col = timing.BOUNDARIES.index
+
+    def graphs(*programs):
+        return [("graph", None, col(b)) for p in programs
+                for b in timing.STAMPED[p] if b != "pre"]
+    untraced = graphs("track_frame_u8", "update_step_dev")
+    seq, slot = list(untraced), rows - 3
+    for _ in range(5):
+        for program in ("track_frame_u8", "update_step_dev"):
+            seq += [("set", slot, col("pre"))] + graphs(program)
+            slot += 1
+        seq += [("set", -1, -1)] + untraced
+    seq += ([("set", 2 * rows + 2, col("pre"))] + graphs("track_frame_u8")
+            + [("set", -1, -1)] + untraced)
+    return seq
+
+
+def check_stamps(results, dev):
+    """stamp_set and stamp_graph against their plain versions on a ring of
+    the engine's shape (``timing.RING_ROWS`` rows and the discard row,
+    one column a boundary) over ``stamp_sequence``: the tags, the slot
+    cell and the cells written must be exactly equal, and the card's
+    times must follow the launch order of each cell's last write.  Then
+    each kernel's device time in a graph of 20 launches (``stamp_set``
+    also back to back, as the engine launches it)."""
+    import torch
+    from dpvo_tpu_torch.utils import timing
+    rows, cols = timing.RING_ROWS, len(timing.BOUNDARIES)
+    seq = stamp_sequence(rows)
+    rings = {}
+    for where in (dev, torch.device("cpu")):
+        ring = torch.zeros((rows + 1, cols, 2), dtype=torch.int64,
+                           device=where)
+        cur = torch.full((1,), -1, dtype=torch.int64, device=where)
+        for kind, slot, c in seq:
+            if kind == "set":
+                timing.stamp_set(ring, cur, slot, c)
+            else:
+                timing.stamp_graph(ring, cur, c)
+        rings[where.type] = (ring.cpu(), cur.cpu())
+    (card, cur_card), (plain, cur_plain) = rings["cuda"], rings["cpu"]
+    err = max(int((card[..., 1] - plain[..., 1]).abs().max()),
+              int((cur_card - cur_plain).abs().max()))
+    same_cells = torch.equal(card[..., 0] != 0, plain[..., 0] != 0)
+    last, held = {}, -1        # cell -> index of its last write
+    for i, (kind, slot, c) in enumerate(seq):
+        if kind == "set":
+            held = slot
+        if c >= 0:
+            last[(rows if held < 0 else held % rows, c)] = i
+    times = [int(card[r, c, 0]) for r, c in sorted(last, key=last.get)]
+    in_order = times == sorted(times)
+    ok = err == 0 and same_cells and in_order and len(last) == int(
+        (plain[..., 0] != 0).sum())
+    log(f"[kernels] stamp_set, stamp_graph on a ({rows + 1}, {cols}, 2) "
+        f"ring, {len(seq)} launches ({sum(k == 'set' for k, _, _ in seq)} "
+        f"set), slots {rows - 3}..{rows + 6} and {2 * rows + 2}: "
+        f"max|tag - plain| {err} (slot cell {int(cur_card[0])}), "
+        f"{len(last)} cells written, the same as plain {same_cells}, card "
+        f"times in launch order {in_order} "
+        f"({(times[-1] - times[0]) * 1e-3:.1f} us first to last) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the stamp kernels disagree with their plain "
+                         "versions on the engine's ring")
+    ring = torch.zeros((rows + 1, cols, 2), dtype=torch.int64, device=dev)
+    cur = torch.full((1,), 5, dtype=torch.int64, device=dev)
+    b_ms, b_by = bound(2 * 8 + 8, 0, "f32")
+    for name, fn, plain_fn in (
+            ("stamp_set", lambda: timing.stamp_set(ring, cur, 5, 0),
+             lambda: timing.stamp_set_ref(ring, cur, 5, 0)),
+            ("stamp_graph", lambda: timing.stamp_graph(ring, cur, 1),
+             lambda: timing.stamp_graph_ref(ring, cur, 1))):
+        ms = graph_ms(fn, reps=20)
+        b2b_ms = time_ms(fn, reps=20, windows=KERNEL_WINDOWS)
+        plain_ms = time_ms(plain_fn, reps=10)
+        log(f"[kernels] {name}: ms={ms:.4f} (in a graph of 20) back to "
+            f"back {b2b_ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+            f"{b_ms:.6f} ({b_by})")
+        results[name] = {"ring": dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)}
 
 
 # --- phase 3: the engine on the card against the engine on the CPU ---------
@@ -1240,10 +1352,12 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     version's path must have launched, and the other correlation kernel
     not.  Frames n_warm .. n_frames - n_profile - 1 are timed one by one
     (synchronised each frame); the last ``n_profile`` frames run under
-    torch.profiler for the device busy time."""
+    torch.profiler for the device busy time, which traces them
+    (``check_stamp_launches``)."""
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
+    from dpvo_tpu_torch.engine.dpvo import _program_name
     from dpvo_tpu_torch.ops import _cuda, corr_cuda
     version = corr_cuda.FUSED_VERSION
     name = regime if version == 13 else f"{regime} v{version}"
@@ -1265,6 +1379,14 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     def frame(t):
         return np.ascontiguousarray(np.roll(base, -4 * t, axis=1)[:, :wd])
 
+    runs = collections.Counter()      # program -> graph replays
+    replay = slam._replay
+
+    def counted(key):
+        runs[_program_name(key)] += 1
+        return replay(key)
+    slam._replay = counted
+
     sync()
     _cuda.reset_launches()
     ms, edges = [], []
@@ -1277,6 +1399,7 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
             edges.append(slam.hs.e_num)
+        untraced = (dict(_cuda.launches), runs.copy())
         profile = "not profiled"
         if n_profile:
             imgs = [frame(t) for t in range(n_timed, n_frames)]
@@ -1290,6 +1413,8 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
                 wall_ms = (time.perf_counter() - t0) * 1e3
             edges.append(slam.hs.e_num)
             profile = device_profile(prof, wall_ms, n_profile)
+            check_stamp_launches(name, slam, untraced, runs, n_timed,
+                                 n_profile)
         poses, tstamps = slam.terminate()
         sync()
         launches = dict(_cuda.launches)
@@ -1320,13 +1445,55 @@ def drive_engine(dev, regime, n_frames=40, n_warm=20, n_profile=5,
     return out
 
 
+def check_stamp_launches(name, slam, untraced, runs, n_untraced, n_traced):
+    """The stamp launches of a drive's untraced frames (``untraced``: the
+    launch counts and graph replays a program at their end) and of its
+    traced frames after them (``runs``: the replays at theirs): untraced,
+    no ``stamp_set`` and the graphs' own ``stamp_graph`` alone; traced,
+    besides those one ``pre`` a replay and one park a call, and every
+    replay read back from the card's ring with no stamp lost."""
+    from dpvo_tpu_torch.ops import _cuda
+    from dpvo_tpu_torch.utils import timing
+    stream_sync()
+    launches_u, runs_u = untraced
+    runs_t = runs - runs_u
+
+    def in_graphs(counter):
+        return sum(n * (len(timing.STAMPED[p]) - 1)
+                   for p, n in counter.items())
+    got = {"untraced": (launches_u.get("stamp_set", 0),
+                        launches_u.get("stamp_graph", 0)),
+           "traced": (_cuda.launches["stamp_set"]
+                      - launches_u.get("stamp_set", 0),
+                      _cuda.launches["stamp_graph"]
+                      - launches_u.get("stamp_graph", 0))}
+    want = {"untraced": (0, in_graphs(runs_u)),
+            "traced": (sum(runs_t.values()) + n_traced, in_graphs(runs_t))}
+    frames = timing.frames(engine=slam.tracer.engine)
+    read = (sum(f["replays"] for f in frames), sum(f["lost"] for f in frames))
+    per = {"untraced": n_untraced, "traced": n_traced}
+    ok = got == want and read == (sum(runs_t.values()), 0)
+    log(f"[engine] {name} stamp launches a frame (counts zeroed just "
+        f"before the drive): "
+        + "; ".join(f"{k} frames ({per[k]}, graph replays "
+                    f"{dict(r)}): stamp_set {got[k][0] / per[k]:.2f}, "
+                    f"stamp_graph {got[k][1] / per[k]:.2f} (expected "
+                    f"{want[k][0]}, {want[k][1]} in all)"
+                    for k, r in (("untraced", runs_u), ("traced", runs_t)))
+        + f"; traced replays read back {read[0]}, lost {read[1]} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"engine drive ({name}): stamp launches {got}, "
+                         f"expected {want}; replays read, lost {read}")
+
+
 def phase_bench(dev, n_windows=2, n_profile=5):
     """bench_torch.py's merge and retain regimes at the default
     configuration (lagged keyframing), through its run_regime, with the
     windows capped; launch counts zeroed before each regime and read after.
     The merge drive's trajectory and map are written as TUM and PLY files
-    into a temporary directory and read back.  The phase timers run (host
-    dispatch), for the graphs phase.  -> {regime: result}."""
+    into a temporary directory and read back.  The engine's tracing runs,
+    for the graphs phase.  -> {regime: result}."""
     from dpvo_tpu_torch.utils.plot_utils import (save_ply,
                                                  save_trajectory_tum_format)
     expect, absent = PATH_KERNELS[13]
@@ -1627,8 +1794,8 @@ def check_padded_kernels(last, regime):
 
 
 def graph_run(dev, regime, cuda_graphs, n_windows=2, n_profile=5):
-    """bench_torch.run_regime with the phase timers on (host dispatch),
-    launch counts zeroed before and read after.  Just before the engine's
+    """bench_torch.run_regime with the engine's tracing on, launch counts
+    zeroed before and read after.  Just before the engine's
     ``terminate()`` one eager update runs on the drive's end state
     (``end_state_update``, its launches not counted), so ``r["last"]``
     holds an update on the drive's live rows even where ``precompile``
@@ -4080,6 +4247,8 @@ def phase_sharded(dev):
 TIMED_PHASES = ("append_factors", "keyframe", "keyframe/apply",
                 "keyframe/launch", "keyframe/result", "keyframe/retire",
                 "track_frame", "update/meta", "update/step")
+# the phases that run a device program, in a merge regime's report
+DEVICE_PHASES = ("keyframe", "keyframe/apply", "track_frame", "update/step")
 # the phases no other phase holds (keyframe holds keyframe/*)
 DISJOINT_PHASES = ("track_frame", "append_factors", "update/meta",
                    "update/step", "keyframe")
@@ -4105,27 +4274,27 @@ TOOL_ARMS = {("bench_profile", "update_step kernels"): True,
 
 def phase_timing(dev):
     """The merge regime of bench_torch.run_regime for two windows with the
-    phase timers on, timing host dispatch and then fencing each phase."""
+    engine's tracing on: each phase's host ms from its spans and the device
+    ms of the programs it ran from the card's stamps (no fence)."""
     import bench_torch
-    for block in (False, True):
-        r = bench_torch.run_regime("merge", device=dev, min_windows=2,
-                                   max_windows=2, timing=True,
-                                   timing_block=block)
-        report = r["timing"]
-        frames = 40 * len(r["windows"])
-        wall = sum(40 / w for w in r["windows"]) * 1e3
+    r = bench_torch.run_regime("merge", device=dev, min_windows=2,
+                               max_windows=2, timing=True)
+    frames = 40 * len(r["windows"])
+    wall = sum(40 / w for w in r["windows"]) * 1e3
+    for clock, report in (("host", r["timing"]),
+                          ("device", r["device_timing"])):
         disjoint = sum(ms * cnt for k, (ms, cnt) in report.items()
                        if k in DISJOINT_PHASES)
-        mode = "fenced" if block else "dispatch"
-        log(f"[tools] phase timers, merge, {mode}: {frames} frames, "
+        log(f"[tools] phase timers, merge, {clock} ms: {frames} frames, "
             f"{wall / frames:.2f} ms/frame wall (windows "
             + ", ".join(f"{1e3 / w:.2f}" for w in r["windows"])
             + " ms/frame); per phase mean ms x count = ms/frame: "
             + "; ".join(f"{k} {ms:.3f} x{cnt} = {ms * cnt / frames:.3f}"
                         for k, (ms, cnt) in report.items())
             + f"; disjoint phases {disjoint / frames:.2f} ms/frame")
-        if tuple(report) != TIMED_PHASES or not disjoint <= wall:
-            raise SystemExit(f"tools: the phase report ({mode}) has "
+        want = TIMED_PHASES if clock == "host" else DEVICE_PHASES
+        if tuple(report) != want or not disjoint <= wall:
+            raise SystemExit(f"tools: the phase report ({clock}) has "
                              f"{tuple(report)}, disjoint phases {disjoint:.1f}"
                              f" ms against {wall:.1f} ms of wall time")
 
@@ -4347,9 +4516,12 @@ def main(argv):
                 "corr_single": single_launches}
     # the kernels line holds K2, K3 and K4 at the lagged merge shape of the
     # default configuration, K1 in the version-12 drive's layout, K5 in
-    # corr_grouped's reference order and the probes at the D3 path's shape
+    # corr_grouped's reference order, the probes at the D3 path's shape
+    # and the stamps on the engine's ring (their launches from the bench
+    # merge drive, traced over its windows)
     picks = {"corr_fused": (E_MAIN, "v12"), "corr_single": (E_MAIN, "ref"),
-             **{f"corr_probe.{p}": E_MAIN for p in PROBES}}
+             **{f"corr_probe.{p}": E_MAIN for p in PROBES},
+             "stamp_set": "ring", "stamp_graph": "ring"}
     line = {"kernels": []}
     for name, meta in KERNELS.items():
         r = kern[name][picks.get(name, SHAPES[1][0])]

@@ -69,12 +69,16 @@ frame and, at most once a period, a host snapshot of the map taken on this
 thread; ``terminate()`` joins it, which writes ``latest.png`` and
 ``map.html`` and re-raises an error of its render thread.
 
-Phase timers (off by default, the JAX engine's): set ``enable_timing``,
-run frames, read ``timing_report()``.  Each phase is wall time on the host
-clock; with ``timing_block`` (the default) both ends of a phase first
-wait for the engine's stream, so the time covers the phase's device work, and
-without it the time is the host's dispatch alone.  The phases nest:
-``keyframe`` holds ``keyframe/*``, and ``update/meta`` and
+Tracing (``utils.timing``, off by default): a call is traced when
+``enable_timing`` is set or a ``torch.profiler`` is recording.  A traced
+call records host spans (``call``; the JAX engine's phases ``track_frame``,
+``append_factors``, ``update/meta``, ``update/step``, ``keyframe`` and its
+``keyframe/{launch,result,apply,retire}``; ``update``, ``stage``,
+``capture``, ``ba_global``, ``wait``, and one span per program run named
+after the program) and the card's stamps at each program's boundaries,
+with no fence.  ``timing_report()`` gives the phases' host ms, and
+``timing_report("device")`` the device ms of the programs each ran.  The
+phases nest: ``keyframe`` holds ``keyframe/*``, and ``update/meta`` and
 ``update/step`` lie inside no other phase, so only ``track_frame``,
 ``append_factors``, ``update/*`` and ``keyframe`` are disjoint.
 """
@@ -89,6 +93,7 @@ from concurrent import futures
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from ..config import VOConfig
 from ..device import resolve_device
@@ -96,6 +101,7 @@ from ..models.update import Update
 from ..models.vonet import Patchifier
 from ..loop_closure.proximity import propose_loop_edges
 from ..ops import _cuda, ba, corr_cuda, lie
+from ..utils import timing
 from ..utils.checkpoint import load_network
 from . import kernels
 from .state import (MM_CAP, UPDATE_SCALARS, allocate, allocate_host,
@@ -105,6 +111,12 @@ from .state import (MM_CAP, UPDATE_SCALARS, allocate, allocate_host,
 TRACK_WRITES = ("poses", "patches", "intrinsics", "colors", "imap", "gmap",
                 "fmap1", "fmap2")
 MERGE_WRITES = TRACK_WRITES + ("eii", "ejj", "ekk")
+
+
+def _program_name(key):
+    """The ``engine.kernels`` program a graph key runs."""
+    return {"track": "track_frame_u8", "merge": "keyframe_merge"}.get(
+        key[0], "update_step_dev")
 
 
 class DPVO:
@@ -129,10 +141,11 @@ class DPVO:
         self.N = cfg.BUFFER_SIZE
         self.RES = 4
         self.is_initialized = False
-        # per-phase wall timing: {phase: [seconds, ...]}
+        # tracing: the operator switch, the engine's tracer, and the tracer
+        # while a traced call runs (None otherwise)
         self.enable_timing = False
-        self.timing_block = True
-        self.timings: dict[str, list] = {}
+        self.tracer = timing.Tracer(self.device)
+        self._tr = None
 
         # frame memory sizes
         self.mem = 36
@@ -183,6 +196,7 @@ class DPVO:
         self._worker = None               # one capture thread, made lazily
         self._in_flight: dict = {}        # key -> Future of its capture
         self._last_ask: dict = {}         # key -> ask number of its last ask
+        self._asked_in: dict = {}         # key -> its last ask's span
         self._asks = 0
         # lagged keyframe decisions (ASYNC_KEYFRAME): device magnitudes
         # with their candidate timestamps, then flushed batches
@@ -228,31 +242,14 @@ class DPVO:
         self.patchifier = patchifier.to(self.device, self.ctype).eval()
         self.update_mod = update.to(self.device, self.ctype).eval()
 
-    # --- phase timing ------------------------------------------------------
+    # --- tracing -----------------------------------------------------------
 
-    def _fence(self):
-        # the engine's stream, not the device: a device-wide synchronise
-        # fails a capture the worker holds open (``_record``)
-        if self.timing_block and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-
-    def _tick(self):
-        if not self.enable_timing:
-            return 0.0
-        self._fence()
-        return time.perf_counter()
-
-    def _tock(self, t0, name):
-        if not self.enable_timing:
-            return
-        self._fence()
-        self.timings.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def timing_report(self):
-        """{phase: (mean_ms, count)} over all recorded frames, sorted by
-        phase."""
-        return {k: (1e3 * float(np.mean(v)), len(v))
-                for k, v in sorted(self.timings.items())}
+    def timing_report(self, clock="host"):
+        """{phase: (mean_ms, count)} over the traced calls the span ring
+        holds, sorted by phase: ``clock`` "host", each phase's span;
+        "device", the card's time of the programs each phase instance ran
+        (``utils.timing.report``)."""
+        return timing.report(self.tracer.engine, clock)
 
     # --- small helpers -----------------------------------------------------
 
@@ -423,6 +420,8 @@ class DPVO:
         self._check_captures()
         if hs.e_num == 0:            # no keyframe pair yet: nothing to solve
             return
+        tr = self._tr
+        sp_update = tr and tr.begin("update")
         self._flush_edge_permute()
         # global BA once per keyframe count, when the active edges reach
         # behind the removal window (loop edges, or frame 0 at init)
@@ -435,14 +434,15 @@ class DPVO:
             t0 = max(self.n - cfg.OPTIMIZATION_WINDOW
                      if self.is_initialized else 1, 1)
             t1 = self.n
-        t_meta = self._tick()
+        sp = tr and tr.begin("update/meta")
         bucket = self._edge_bucket()
         blob, tcand = self._mm_blob()
         k_cap = self._update_k_cap()
         self._stage_update(hs.e_num, t0, t1, blob)
-        self._tock(t_meta, "update/meta")
+        if sp:
+            sp.end()
         # as in the JAX engine, update/step times the local-BA branch only
-        t_up = self._tick() if not run_global else 0.0
+        sp = tr and not run_global and tr.begin("update/step")
         mag = self._call_update_step(bucket, not run_global,
                                      blob is not None, k_cap)
         if tcand is not None:
@@ -452,8 +452,10 @@ class DPVO:
             self._mag_pending.append((mag.clone(), tcand))
         if run_global:
             self._run_global_ba()
-        else:
-            self._tock(t_up, "update/step")
+        elif sp:
+            sp.end()
+        if sp_update:
+            sp_update.end()
 
     def _copy_in(self, dst, src):
         """Write ``src`` (a numpy array or tensor of ``dst``'s shape) into the
@@ -466,9 +468,12 @@ class DPVO:
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"expected shape {tuple(dst.shape)}, got "
                              f"{tuple(src.shape)}")
+        sp = self._tr and self._tr.begin("stage")
         if self.device.type == "cuda" and src.device.type == "cpu":
             src = src.pin_memory()
         dst.copy_(src, non_blocking=True)
+        if sp:
+            sp.end()
 
     def _stage_update(self, e_num, t0, t1, blob):
         """Write the update's inputs (``DeviceState.update_in``) with one
@@ -493,7 +498,7 @@ class DPVO:
                 ds, self.update_mod, bucket, e_num, t0, t1, blob, M=self.M,
                 pmem=self.pmem, mem=self.mem, n_cap=self.n_cap, k_cap=k_cap,
                 iterations=2, run_ba=run_ba, has_mm=has_mm, mm_cap=MM_CAP,
-                corr_version=version)[1]
+                corr_version=version, stamp=self.tracer.stamper())[1]
         return program
 
     def _call_update_step(self, bucket, run_ba, has_mm, k_cap):
@@ -584,9 +589,16 @@ class DPVO:
     def _run(self, key, program, written, draws=False):
         """Run ``program``: eagerly on the CPU (or with ``cuda_graphs=
         False``), else by replaying its CUDA graph, captured the first time
-        its key is reached.  -> the program's output."""
+        its key is reached.  In a traced call an eager program stamps like
+        its graph.  -> the program's output."""
         if not self.cuda_graphs:
-            return program()
+            if self._tr is None:
+                return program()
+            sp = self._tr.replay(_program_name(key))
+            with self.tracer.stamped():
+                out = program()
+            sp.end()
+            return out
         if key not in self._graphs:
             # one capture into the pool at a time: the worker's running
             # one ends first, its queued ones are dropped (asked again,
@@ -598,9 +610,14 @@ class DPVO:
         return self._replay(key)
 
     def _replay(self, key):
-        """Replay ``key``'s graph and count its launches.  -> its output."""
+        """Replay ``key``'s graph and count its launches; in a traced call
+        inside a span named after the program, after its ``pre`` stamp.
+        -> its output."""
         graph, out, launches = self._graphs[key]
+        sp = self._tr and self._tr.replay(_program_name(key))
         graph.replay()
+        if sp:
+            sp.end()
         _cuda.replayed(launches)
         return out
 
@@ -657,10 +674,13 @@ class DPVO:
         same generator state, and advances it as much.  A failed capture
         raises.  -> (graph, the program's output, the launches one replay
         makes)."""
+        sp = self._tr and self._tr.begin("capture")
         t_c = time.perf_counter()
         self._warm(program, written)
         entry = self._record(program, draws)
         self.graph_capture_ms[key] = (time.perf_counter() - t_c) * 1e3
+        if sp:
+            sp.end()
         return entry
 
     def _record(self, program, draws=False):
@@ -674,8 +694,9 @@ class DPVO:
         synchronises the card and empties the allocator's caches on
         entering).  A device-wide synchronise from any thread while a
         capture is open is refused by CUDA and fails it: the engine waits
-        on its stream (``_fence``).  -> (graph, output, launches one replay
-        makes)."""
+        on its stream.  The program is captured between its head and tail
+        stamps, with its own (``utils.timing``).  -> (graph, output,
+        launches one replay makes)."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -687,7 +708,8 @@ class DPVO:
             graph.capture_begin(pool=self._graph_pool,
                                 capture_error_mode="thread_local")
             try:
-                out = program()
+                with self.tracer.stamped():
+                    out = program()
             except BaseException:
                 # the program's error, not the capture's on ending; the
                 # failed graph is freed here, while no capture is open
@@ -737,6 +759,7 @@ class DPVO:
         self._asks += 1
         with self._graph_lock:
             self._last_ask[key] = self._asks
+            self._asked_in[key] = self._tr and self._tr.ask()
             if key in self._in_flight:
                 return
             self._in_flight[key] = futures.Future()
@@ -748,7 +771,9 @@ class DPVO:
         (``_record``), with no eager pass: the state is the frames', and
         every library the program runs was loaded when its cover was
         captured.  The graph is published into ``_graphs`` under the lock;
-        a failure stays in the key's future (``_check_captures``)."""
+        a failure stays in the key's future (``_check_captures``).  Asked
+        in a traced call, the capture is a ``capture`` span under the span
+        that asked last."""
         with self._graph_lock:
             queued = [k for k, f in self._in_flight.items()
                       if not (f.running() or f.done())]
@@ -757,6 +782,8 @@ class DPVO:
             key = max(queued, key=self._last_ask.__getitem__)
             fut = self._in_flight[key]
             fut.set_running_or_notify_cancel()
+            ask = self._asked_in.get(key)
+        sp = ask and self.tracer.begin("capture", ask)
         t_c = time.perf_counter()
         try:
             entry = self._record(self._update_program(*key))
@@ -764,6 +791,9 @@ class DPVO:
             fut.set_exception(e)
             fut = None       # no cycle: the error's frames hold this one
             return
+        finally:
+            if sp:
+                sp.end()
         ms = (time.perf_counter() - t_c) * 1e3
         with self._graph_lock:
             self._graphs[key] = entry
@@ -789,7 +819,10 @@ class DPVO:
             with self._graph_lock:
                 self._in_flight = {k: f for k, f in self._in_flight.items()
                                    if not f.cancel()}
+        sp = self._tr and self._tr.begin("wait")
         futures.wait(list(self._in_flight.values()))
+        if sp:
+            sp.end()
         self._check_captures()
 
     def graph_pool_bytes(self):
@@ -926,6 +959,7 @@ class DPVO:
         from the oldest active source frame spans 64 pose blocks or more,
         else ``ops.ba.ba_iterative``."""
         hs, ds = self.hs, self.ds
+        sp = self._tr and self._tr.begin("ba_global")
         e = hs.e_num
         ii = np.concatenate([hs.ii_inac, hs.ii[:e]])
         jj = np.concatenate([hs.jj_inac, hs.jj[:e]])
@@ -951,6 +985,8 @@ class DPVO:
         ds.poses.copy_(poses)
         ds.patches.copy_(patches)
         self.ran_global_ba[self.n] = True
+        if sp:
+            sp.end()
 
     def normalize(self):
         """Rescale depths and poses (``kernels.normalize_scene``) and the
@@ -1035,18 +1071,23 @@ class DPVO:
 
     def _apply_overdue(self):
         """Apply, oldest first, every flushed batch that is overdue."""
-        q = self._kf_queue
+        q, tr = self._kf_queue, self._tr
         while q and (self._kf_clock - q[0][3] + self._b_eff - 1
                      >= self.cfg.ASYNC_KEYFRAME_LAG):
             vec, event, tcands, _ = q.pop(0)
-            t_r = self._tick()
+            sp = tr and tr.begin("keyframe/result")
             if event is not None:
+                sp_wait = tr and tr.begin("wait")
                 event.synchronize()
-            self._tock(t_r, "keyframe/result")
-            t_a = self._tick()
+                if sp_wait:
+                    sp_wait.end()
+            if sp:
+                sp.end()
+            sp = tr and tr.begin("keyframe/apply")
             for m, tcand in zip(vec.tolist(), tcands):
                 self._keyframe_apply(m, tcand)
-            self._tock(t_a, "keyframe/apply")
+            if sp:
+                sp.end()
 
     def _keyframe_apply(self, m, tcand):
         """Merge the candidate frame (found by timestamp) if motion is
@@ -1084,13 +1125,14 @@ class DPVO:
             self.long_term_lc.keyframe(k)
 
     def keyframe(self):
-        cfg, hs, ds = self.cfg, self.hs, self.ds
+        cfg, hs, ds, tr = self.cfg, self.hs, self.ds, self._tr
         if cfg.ASYNC_KEYFRAME:
             self._kf_clock += 1
-            t_l = self._tick()
+            sp = tr and tr.begin("keyframe/launch")
             if len(self._mag_pending) >= self._b_eff:
                 self._flush_mags()
-            self._tock(t_l, "keyframe/launch")
+            if sp:
+                sp.end()
             self._apply_overdue()
         else:
             blob, tcand = self._candidate_blob()
@@ -1102,7 +1144,7 @@ class DPVO:
 
         # retire edges outside the removal window; under loop closure the
         # loop edges into the optimization window stay
-        t_rt = self._tick()
+        sp = tr and tr.begin("keyframe/retire")
         e = hs.e_num
         to_remove = (hs.kk[:e] // self.M) < self.n - cfg.REMOVAL_WINDOW
         if cfg.LOOP_CLOSURE:
@@ -1110,7 +1152,8 @@ class DPVO:
                            & (hs.jj[:e] > self.n - cfg.OPTIMIZATION_WINDOW))
         self.remove_factors(to_remove, store=True)
         self._flush_edge_permute()
-        self._tock(t_rt, "keyframe/retire")
+        if sp:
+            sp.end()
 
     def motion_probe(self):
         kk = torch.arange(self.m - self.M, self.m, device=self.device)
@@ -1128,8 +1171,19 @@ class DPVO:
     @torch.no_grad()
     def __call__(self, tstamp, image, intrinsics):
         """Track one frame.  image: (H, W, 3) uint8 BGR (numpy or tensor);
-        intrinsics: (4,) at full image resolution."""
-        cfg, hs = self.cfg, self.hs
+        intrinsics: (4,) at full image resolution.  Traced (``utils.timing``)
+        when ``enable_timing`` is set or a ``torch.profiler`` records."""
+        if not (self.enable_timing or _profiler._is_profiler_enabled):
+            return self._frame(tstamp, image, intrinsics)
+        self._tr = self.tracer.begin_call(self.hs.counter)
+        try:
+            return self._frame(tstamp, image, intrinsics)
+        finally:
+            self._tr = None
+            self.tracer.end_call()
+
+    def _frame(self, tstamp, image, intrinsics):
+        cfg, hs, tr = self.cfg, self.hs, self._tr
         if self.long_term_lc is not None:
             self.long_term_lc(image.cpu().numpy() if torch.is_tensor(image)
                               else np.asarray(image), self.n)
@@ -1150,11 +1204,12 @@ class DPVO:
         *_, a, b, c = [1] * 3 + hs.tlist
         fac = (c - b) / (b - a) if (b - a) != 0 else 1.0
 
-        t_tr = self._tick()
+        sp = tr and tr.begin("track_frame")
         self._stage_track(image, intrinsics, self.n, fac, self.is_initialized)
         key, program = self._track_program()
         self._run(key, program, self._writes(TRACK_WRITES), draws=True)
-        self._tock(t_tr, "track_frame")
+        if sp:
+            sp.end()
 
         hs.counter += 1
         if self.n > 0 and not self.is_initialized:
@@ -1174,12 +1229,13 @@ class DPVO:
                 self.append_factors(lkk, ljj)
 
         # forward + backward factors in one append
-        t_ap = self._tick()
+        sp = tr and tr.begin("append_factors")
         kf, jf = self._DPVO__edges_forw()
         kb, jb = self._DPVO__edges_back()
         self.append_factors(np.concatenate([kf, kb]),
                             np.concatenate([jf, jb]))
-        self._tock(t_ap, "append_factors")
+        if sp:
+            sp.end()
 
         if self.n == 8 and not self.is_initialized:
             self.is_initialized = True
@@ -1192,9 +1248,10 @@ class DPVO:
                     and len(self._mag_pending) >= self._b_eff):
                 self._flush_mags()
             self.update()
-            t_kf = self._tick()
+            sp = tr and tr.begin("keyframe")
             self.keyframe()
-            self._tock(t_kf, "keyframe")
+            if sp:
+                sp.end()
 
         if self.long_term_lc is not None:
             self.long_term_lc.attempt_loop_closure(self.n)

@@ -185,7 +185,7 @@ def _corr_act(ds, update_mod, coords, kk_mod, jj_mod, version=None):
 def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
                     t0, t1, mm_blob, M, pmem, mem, n_cap, k_cap,
                     iterations=2, run_ba=True, has_mm=False, mm_cap=256,
-                    corr_version=None):
+                    corr_version=None, stamp=None):
     """Reproject -> correlate -> recurrent update -> bundle adjust as one
     fixed-shape program over rows [0, bucket) of the device edge tables,
     the rows at or past ``e_num`` masked (``update_step_dev`` of the JAX
@@ -206,7 +206,9 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
     (``agg_cuda.split_masked`` in ``ba_iterative``).  Writes rows
     [0, bucket) of net/target/weight, poses and patches IN PLACE (a graph
     holds the addresses).  -> (delta (bucket, 2), magnitude (device
-    scalar) or None)."""
+    scalar) or None).  ``stamp`` (the engine's tracing, ``utils.timing``):
+    called with "corr" after the correlation, "net" after the update
+    operator and "ba" after local BA and its copy-back."""
     dev = ds.eii.device
     imax = scatter.INT_MAX
     valid = torch.arange(bucket, device=dev) < e_num
@@ -239,12 +241,16 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
                             Gij=Gij_tab[gid_o_ij])          # (E, P, P, 2)
     kk_mod = kk % (M * pmem)
     corr = _corr_act(ds, update_mod, coords, kk_mod, jj % mem, corr_version)
+    if stamp:
+        stamp("corr")
     ctx = ds.imap[kk_mod].float()
     meta = tuple((perm, agg_cuda.skip_masked(gid_s, valid[perm], g_cap),
                   gid_o) for perm, gid_s, gid_o in (cm_kk, cm_ij))
     net, delta, weight = update_mod(
         ds.net[:bucket], ctx, corr, ii, jj, kk, valid, nbrs=nbrs,
         compact_meta=meta, g_cap=g_cap)
+    if stamp:
+        stamp("net")
     target = torch.where(valid[:, None], coords[:, c, c] + delta, 0.0)
 
     if run_ba:
@@ -255,6 +261,8 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
             pair_cap=g_cap, pair_rep=pair_rep)
         ds.poses.copy_(poses)
         ds.patches.copy_(patches)
+    if stamp:
+        stamp("ba")
 
     ds.net[:bucket].copy_(net)
     ds.target[:bucket].copy_(target)

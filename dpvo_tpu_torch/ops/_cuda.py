@@ -34,7 +34,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("corr_enc.cu", "corr_raw.cu", "segment_sums.cu")
+SOURCES = ("corr_enc.cu", "corr_raw.cu", "segment_sums.cu", "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -45,6 +45,7 @@ _lib = None
 _lock = threading.Lock()
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "dpvo_corr_enc_f32": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
     "dpvo_corr_enc_bf16": [_VP] * 7 + [_VP] + [_I] * 6 + [_VP],
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "dpvo_corr_probe": [_I] + [_VP] * 6 + [_F] + [_I] * 5 + [_VP],
     "dpvo_segment_softmax_sums": [_VP] * 5 + [_I] * 3 + [_VP],
     "dpvo_segment_sums": [_VP] * 3 + [_I] * 3 + [_VP],
+    "dpvo_stamp_set": [_VP, _VP, _L] + [_I] * 3 + [_VP],
+    "dpvo_stamp_graph": [_VP] * 2 + [_I] * 3 + [_VP],
 }
 
 

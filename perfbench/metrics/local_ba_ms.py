@@ -1,0 +1,27 @@
+"""Device milliseconds a frame of local BA (``ops.ba.ba_iterative``, K4)
+inside the update program's graph: from the stamp after the update operator
+to the one after BA and its copy-back into the state.  The stamps are the
+card's own ``%globaltimer``, written by ``dpvo_tpu_torch.utils.timing``'s
+stamp kernels; the mean is over the frames whose call starts in the traced
+stretch (``ctx["stretch"]``, host clock) with no stamp lost.  Taken under
+the profiler, so it includes the profiler's overhead.  Where the host trails
+the card, a graph whose launch is still streaming in stalls the card between
+its nodes, and this segment includes those stalls (launch_idle_ms counts
+only the first node's wait), so this reading moves with the host's speed as
+well.  A program without the stamps, or a run with nothing traced on the
+card, reads nothing."""
+LAYER = "local BA"
+UNIT = "ms"
+MOVES = "fps"
+
+
+def read(ctx):
+    tr = ctx["stretch"]
+    if "t1" not in tr:
+        return None
+    try:
+        from dpvo_tpu_torch.utils import timing
+        stretch_mean = timing.stretch_mean
+    except (ImportError, AttributeError):
+        return None
+    return stretch_mean(tr["t0"], tr["t1"], "ba")

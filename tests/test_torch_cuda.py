@@ -41,7 +41,11 @@ a cover's replay against the exact key's on one state (TOL_COVER_CARD), a
 background capture held open while the engine thread replays, copies and
 waits (the capture lands and replays bitwise as its eager program), and a
 failure injected into the worker's capture raising on the engine thread;
-``utils.timing.Timer`` around a frame while a capture is open.
+``utils.timing.Timer`` around a frame while a capture is open.  The
+engine's tracing: the stamp kernels against their plain versions, traced
+frames' stamps (a ``pre`` a program, segments within their program, none
+lost; untraced frames launch no eager stamp) and a three-frame run-ahead
+that loses no stamp row.
 """
 import threading
 
@@ -815,3 +819,116 @@ def test_structure_only_ba_card_vs_cpu(dev):
                        pts_c, targets)
     np.testing.assert_allclose(got, want, atol=1e-4)
     np.testing.assert_allclose(got, X, atol=1e-2)
+
+
+# --- the engine's tracing: device stamps ------------------------------------
+
+def test_stamp_kernels_vs_plain(dev):
+    """The stamp kernels against their plain versions on one sequence of
+    set, graph and park stamps over a 4-row ring (rows wrap, the parked
+    slot writes the discard row): the same cells written with the same
+    tags and the same slot cell; on the card the written times follow the
+    launch order."""
+    from dpvo_tpu_torch.utils import timing
+    seq = [("graph", None, 2), ("set", 6, 0), ("graph", None, 5),
+           ("graph", None, 1), ("set", 9, 0), ("graph", None, 3),
+           ("set", 13, 0), ("graph", None, 4), ("set", -1, -1),
+           ("graph", None, 2)]
+    rings = {}
+    for where in (dev, torch.device("cpu")):
+        ring = torch.zeros((5, len(timing.BOUNDARIES), 2), dtype=torch.int64,
+                           device=where)
+        cur = torch.full((1,), -1, dtype=torch.int64, device=where)
+        for kind, slot, col in seq:
+            if kind == "set":
+                timing.stamp_set(ring, cur, slot, col)
+            else:
+                timing.stamp_graph(ring, cur, col)
+        rings[where.type] = (ring.cpu(), int(cur[0]))
+    (card, cur_card), (cpu, cur_cpu) = rings["cuda"], rings["cpu"]
+    assert cur_card == cur_cpu == -1
+    assert torch.equal(card[..., 1], cpu[..., 1])
+    assert torch.equal(card[..., 0] > 0, cpu[..., 0] > 0)
+    order = [(4, 2), (2, 0), (2, 5), (2, 1), (1, 0), (1, 3), (1, 0), (1, 4),
+             (4, 2)]
+    last = {cell: i for i, cell in enumerate(order)}   # each cell's last
+    times = [int(card[r, c, 0]) for r, c in sorted(last, key=last.get)]
+    assert times == sorted(times)
+
+
+def _traced_engine(dev):
+    """A small bf16 engine with the default lag (decisions apply 5-8 frames
+    after their batch: three frames never wait on the card) after 12
+    untraced frames; -> (engine, frame source)."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=True, EDGE_CAPACITY=512, BA_WINDOW_CAP=8,
+                   KEYFRAME_THRESH=0.0)
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    slam = DPVO(cfg, ht=96, wd=128, device=dev, seed=2)
+    slam.motion_probe = lambda: 100.0
+
+    def frame(t):
+        slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+             np.array([64.0, 64.0, 64.0, 48.0]))
+    for t in range(12):
+        frame(t)
+    torch.cuda.current_stream().synchronize()
+    return slam, frame
+
+
+def test_traced_frames_stamp_every_program(dev):
+    """Untraced frames launch no eager stamp, their graphs' seven stamps
+    still run; traced frames add one ``pre`` stamp a program and a park,
+    and their rows reduce to segments that sum to no more than their
+    update program, with no stamp lost."""
+    from dpvo_tpu_torch.utils import timing
+    slam, frame = _traced_engine(dev)
+    before = dict(_cuda.launches)
+    for t in range(12, 15):
+        frame(t)
+    assert _cuda.launches["stamp_set"] == before.get("stamp_set", 0)
+    assert _cuda.launches["stamp_graph"] - before.get("stamp_graph", 0) \
+        == 3 * 7
+    slam.enable_timing = True
+    t0 = timing.time.perf_counter()
+    for t in range(15, 21):
+        frame(t)
+    slam.enable_timing = False
+    torch.cuda.current_stream().synchronize()
+    assert _cuda.launches["stamp_set"] - before.get("stamp_set", 0) \
+        == 6 * 3
+    frames = timing.frames(t0, device="cuda", engine=slam.tracer.engine)
+    assert len(frames) == 6
+    for f in frames:
+        assert f["lost"] == 0 and f["replays"] == 2
+        assert f["track_frame_u8"] > 0 and f["update_step_dev"] > 0
+        segs = (f["corr"], f["net"], f["ba"], f["rest"])
+        assert min(segs) >= 0 and sum(segs[:3]) <= f["update_step_dev"]
+        assert f["launch"] >= 0 and f["idle"] >= 0
+    slam.terminate()
+
+
+def test_run_ahead_loses_no_stamp_row(dev):
+    """The host three frames ahead of the card (its stream held by a
+    sleeping kernel): the calls read no row the card has not written, and
+    once it has, every program run of the three frames is read, none
+    lost."""
+    from dpvo_tpu_torch.utils import timing
+    slam, frame = _traced_engine(dev)
+    slam.enable_timing = True
+    t0 = timing.time.perf_counter()
+    torch.cuda._sleep(int(3e8))
+    for t in range(12, 15):
+        frame(t)
+    pending = sum(e["engine"] == slam.tracer.engine
+                  for e in timing._PENDING)
+    torch.cuda.current_stream().synchronize()
+    frames = timing.frames(t0, device="cuda", engine=slam.tracer.engine)
+    assert pending == 3
+    assert [(f["replays"], f["lost"]) for f in frames] == [(2, 0)] * 3
+    slam.enable_timing = False
+    slam.terminate()

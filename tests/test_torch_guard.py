@@ -389,6 +389,34 @@ def test_cold_key_with_a_cover_replays_it_and_is_captured_once():
     assert slam._worker is None
 
 
+def test_a_traced_ask_parents_the_workers_capture():
+    """In a traced call, the worker's capture of a cold key is a ``capture``
+    span on the worker's thread, in the asking call's frame, under the
+    span that asked (here ``update/step``); the cover's replay is a span
+    named after the program under the same span."""
+    from dpvo_tpu_torch.utils import timing
+    slam = stub_engine()
+    cover, exact = cover_and_exact(slam)
+    gate = threading.Event()
+    slam._record, _ = gated_record(gate)
+    tr = slam._tr = slam.tracer.begin_call(slam.hs.counter)
+    step = tr.begin("update/step")
+    slam._call_update_step(1024, True, True, slam.k_cap)
+    step.end()
+    slam._tr = None
+    tr.end_call()
+    gate.set()
+    slam._wait_captures()
+    spans = [x for x in timing.SPANS if x.engine == slam.tracer.engine]
+    (cap,) = [x for x in spans if x.name == "capture"]
+    (run,) = [x for x in spans if x.name == "update_step_dev"]
+    assert cap.parent == run.parent == step.id
+    assert cap.frame == run.frame == slam.hs.counter
+    assert cap.thread != threading.get_ident() == run.thread
+    assert exact in slam._graphs
+    slam.terminate()
+
+
 @pytest.mark.parametrize("graphs", ["none", "smaller", "capacity", "version",
                                     "local_ba"])
 def test_cold_key_without_a_cover_is_captured_here(graphs):

@@ -20,11 +20,20 @@ with edges at the end of the never-merge drive (rtol 1e-4, atol 1e-5), and
 is 0.0 for a pair with none.  The two drives' poses agree only within the
 never-merge envelope (translation 5e-3), which moves a magnitude by up to
 ~2e-4 of itself, so the port's engine first takes the JAX engine's poses,
-patches and intrinsics (the edge tables are equal).  With timing off the
-fence is never reached, and ``bench_torch.run_regime(..., timing=True)``
-returns all nine phases.
+patches and intrinsics (the edge tables are equal).  With timing off
+nothing is recorded and no span, ``record_function``, eager stamp or
+fence is reached, and ``bench_torch.run_regime(..., timing=True)`` returns
+all nine phases.
+
+The engine's tracing (``utils.timing``) on a port drive alone: the spans'
+names, nesting, frames and threads; tracing turned on by a running
+``torch.profiler`` alone, its spans among the profiler's events as
+``dpvo.*``; the CPU's stamp rows reduced per frame (segments summing to
+their program) and the benchmark's six readers of them finding nothing on
+the CPU; the stamp kernels' plain versions.
 """
 import importlib.util
+import threading
 from pathlib import Path
 
 import jax
@@ -36,6 +45,7 @@ from dpvo_tpu.config import VOConfig as JaxConfig
 from dpvo_tpu.engine import DPVO as JaxDPVO
 from dpvo_tpu_torch.config import VOConfig
 from dpvo_tpu_torch.engine import DPVO
+from dpvo_tpu_torch.utils import timing
 from dpvo_tpu_torch.utils.checkpoint import params_from_jax
 from test_torch_async import LAGGED, _LatePool
 from test_torch_engine import (DEPTH0, HT, INTR, TINY, WD, centroid_grid,
@@ -133,7 +143,7 @@ def test_update_with_no_edges_records_no_phase():
     slam.enable_timing = True
     assert slam.hs.e_num == 0
     slam.update()
-    assert slam.timings == {}
+    assert slam.timing_report() == {}
 
 
 def test_motionmag_matches_jax(drives):
@@ -161,19 +171,33 @@ def test_motionmag_matches_jax(drives):
 
 
 def test_timing_off_never_fences(monkeypatch):
-    """With timing off (the default) no phase is recorded and neither the
-    fence nor a device synchronise is reached; on the CPU, timing on
-    records the phases without a device synchronise."""
+    """With timing off (the default) no span or stamp row is recorded, and
+    neither a span, a ``record_function``, an eager stamp, the stamps'
+    copy nor a fence or device synchronise is reached; on the CPU, timing
+    on records the phases without a device synchronise."""
     def boom(*a, **k):
-        raise AssertionError("fenced with timing off")
+        raise AssertionError("traced or fenced with timing off")
 
-    monkeypatch.setattr(DPVO, "_fence", boom)
-    monkeypatch.setattr(torch.cuda, "synchronize", boom)
+    for obj, name in ((torch.cuda, "synchronize"),
+                      (torch.cuda.Stream, "synchronize"),
+                      (torch.cuda.Event, "synchronize"),
+                      (torch.autograd.profiler, "record_function"),
+                      (torch._C._profiler, "_RecordFunctionFast"),
+                      (timing, "stamp_set"), (timing, "stamp_graph"),
+                      (timing, "stamp_set_ref"), (timing, "stamp_graph_ref"),
+                      (timing, "_fence"), (timing.Tracer, "begin"),
+                      (timing.Tracer, "begin_call"),
+                      (timing.Tracer, "replay"),
+                      (timing.Tracer, "_copy_rows")):
+        monkeypatch.setattr(obj, name, boom)
+    spans, replays = len(timing.SPANS), len(timing.REPLAYS)
     slam = seams(DPVO(VOConfig(**LAGGED), ht=HT, wd=WD, device="cpu"))
-    assert not slam.enable_timing and slam.timing_block
+    assert not slam.enable_timing
     for t, img in enumerate(make_frames()):
         slam(t, img, INTR)
-    assert slam.timings == {} and slam.timing_report() == {}
+    assert slam.timing_report() == {}
+    assert slam.timing_report("device") == {}
+    assert (len(timing.SPANS), len(timing.REPLAYS)) == (spans, replays)
     monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "synchronize", boom)
     slam = timed_drive(seams(DPVO(VOConfig(**LAGGED), ht=HT, wd=WD,
@@ -197,3 +221,150 @@ def test_bench_run_regime_returns_the_phases():
                            PATCHES_PER_FRAME=8, EDGE_CAPACITY=4096,
                            MIXED_PRECISION=False)
     assert off["timing"] is None
+
+
+# --- the engine's tracing on a port drive -----------------------------------
+
+SPAN_NAMES = set(timing.PHASES) | set(timing.PROGRAMS) | {
+    "call", "update", "stage", "capture", "ba_global", "wait"}
+# each span's parent: the phases' as the JAX engine nests them, each
+# program run under the phase that runs it
+PARENTS = {"track_frame": {"call"}, "append_factors": {"call"},
+           "update": {"call"}, "update/meta": {"update"},
+           "update/step": {"update"}, "keyframe": {"call"},
+           "keyframe/launch": {"keyframe"}, "keyframe/result": {"keyframe"},
+           "keyframe/apply": {"keyframe"}, "keyframe/retire": {"keyframe"},
+           "track_frame_u8": {"track_frame"},
+           "update_step_dev": {"update/step"},
+           "keyframe_merge": {"keyframe/apply"},
+           "stage": {"track_frame", "update/meta", "keyframe/apply"}}
+READERS = ("track_program_ms", "update_program_ms", "update_net_ms",
+           "local_ba_ms", "launch_idle_ms", "engine_idle_ms")
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """The lagged drive with tracing on from the first frame, terminated:
+    (engine, its spans, its replays, the drive's host-clock span)."""
+    slam = seams(DPVO(VOConfig(**LAGGED), ht=HT, wd=WD, device="cpu"))
+    slam.enable_timing = True
+    t0 = timing.time.perf_counter()
+    for t, img in enumerate(make_frames()):
+        slam(t, img, INTR)
+    t1 = timing.time.perf_counter()
+    slam.terminate()
+    eng = slam.tracer.engine
+    timing.drain()
+    return (slam, [s for s in timing.SPANS if s.engine == eng],
+            [r for r in timing.REPLAYS if r.engine == eng], (t0, t1))
+
+
+def test_spans_nest_by_frame_and_thread(traced):
+    slam, spans, replays, _ = traced
+    by_id = {s.id: s for s in spans}
+    calls = [s for s in spans if s.name == "call"]
+    assert [c.frame for c in sorted(calls, key=lambda c: c.t0)] == list(
+        range(len(make_frames())))
+    assert {s.name for s in spans} <= SPAN_NAMES
+    assert {s.thread for s in spans} == {threading.get_ident()}
+    for s in spans:
+        assert s.t0 <= s.t1
+        if s.name == "call":
+            assert s.parent is None
+            continue
+        parent = by_id[s.parent]
+        assert s.frame == parent.frame
+        assert parent.t0 <= s.t0 and s.t1 <= parent.t1
+        if s.name in PARENTS:
+            assert parent.name in PARENTS[s.name], (s.name, parent.name)
+    # the JAX engine's phases: timing_report reads the same spans
+    report = slam.timing_report()
+    assert tuple(report) == PHASES
+    assert {k: c for k, (_, c) in report.items()} == {
+        k: sum(s.name == k for s in spans) for k in PHASES}
+    # one replay record per program run, under its span
+    runs = [s for s in spans if s.name in timing.PROGRAMS]
+    assert sorted(r.span for r in replays) == sorted(s.id for s in runs)
+    for r in replays:
+        assert by_id[r.span].name == r.program
+        assert by_id[r.span].frame == r.frame
+
+
+def test_cpu_stamps_reduce_per_frame(traced):
+    """The CPU's stamp rows (the host clock in the card's place): no row
+    lost, each update's segments summing to its program, launch and idle
+    waits non-negative; the device report holds the phases that ran a
+    program, none of them longer in all on the device than on the host
+    clock."""
+    slam, _, replays, (t0, t1) = traced
+    frames = timing.frames(t0, t1, device="cpu", engine=slam.tracer.engine)
+    assert len(frames) == len(make_frames())
+    assert sum(f["replays"] for f in frames) == len(replays)
+    for f in frames:
+        assert f["lost"] == 0 and f["track_frame_u8"] > 0
+        parts = f["corr"] + f["net"] + f["ba"] + f["rest"]
+        assert parts == pytest.approx(f["update_step_dev"], abs=1e-9)
+        assert min(f["corr"], f["net"], f["ba"], f["launch"],
+                   f["idle"]) >= 0
+    device = slam.timing_report("device")
+    assert tuple(device) == ("keyframe", "keyframe/apply", "track_frame",
+                             "update/step")
+    host = slam.timing_report()
+    for k, (ms, count) in device.items():
+        assert 0 < ms * count <= host[k][0] * host[k][1]
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_readers_find_nothing_on_the_cpu(traced, name):
+    """The benchmark's readers of the stamps read the card's alone: on the
+    CPU's records they return None, with or without a traced stretch."""
+    _, _, _, (t0, t1) = traced
+    spec = importlib.util.spec_from_file_location(
+        "reader_" + name, ROOT / "perfbench" / "metrics" / f"{name}.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    assert reader.LAYER in ("device programs", "networks", "local BA",
+                            "device-program graphs", "host engine")
+    assert (reader.UNIT, reader.MOVES) == ("ms", "fps")
+    assert reader.read(dict(stretch=dict(t0=t0, t1=t1))) is None
+    assert reader.read(dict(stretch=dict(p0=0, n=4))) is None
+
+
+def test_a_running_profiler_turns_tracing_on():
+    """With the switch off, a recording ``torch.profiler`` traces each call
+    it sees: the spans are recorded and are among its events as
+    ``dpvo.<name>``; the call after it stops records nothing."""
+    slam = seams(DPVO(VOConfig(**LAGGED), ht=HT, wd=WD, device="cpu"))
+    frames = make_frames()
+    for t in range(10):
+        slam(t, frames[t], INTR)
+    eng = slam.tracer.engine
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        slam(10, frames[10], INTR)
+    slam(11, frames[11], INTR)
+    spans = [s for s in timing.SPANS if s.engine == eng]
+    assert {s.frame for s in spans} == {10}
+    names = {e.name for e in prof.events() if e.name.startswith("dpvo.")}
+    assert names == {"dpvo." + s.name for s in spans}
+    assert {"dpvo.call", "dpvo.track_frame_u8", "dpvo.update_step_dev",
+            "dpvo.update/step"} <= names
+
+
+def test_stamp_plain_versions():
+    """The stamp kernels' plain versions: a set stamp writes its slot's
+    row and moves the slot cell, a graph stamp writes the cell's slot,
+    slot -1 parks to the discard row, rows wrap at the ring's length."""
+    ring = torch.zeros((4 + 1, len(timing.BOUNDARIES), 2), dtype=torch.int64)
+    cur = torch.full((1,), -1, dtype=torch.int64)
+    timing.stamp_graph(ring, cur, 2)               # parked: discard row
+    assert ring[4, 2, 1] == -1 and ring[4, 2, 0] > 0
+    timing.stamp_set(ring, cur, 6, 0)
+    timing.stamp_graph(ring, cur, 5)
+    assert int(cur[0]) == 6
+    assert ring[2, 0, 1] == 6 and ring[2, 5, 1] == 6
+    assert 0 < ring[2, 0, 0] <= ring[2, 5, 0]
+    timing.stamp_set(ring, cur, -1)
+    assert int(cur[0]) == -1 and ring[:4, :, 1].count_nonzero() == 2
+    with pytest.raises(ValueError):
+        timing.stamp_set(ring.int(), cur, 0, 0)

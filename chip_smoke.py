@@ -20,7 +20,13 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    wrapper beside; K4 also exactly equal to the
    row-order reference ``segment_sums_ordered``, and on three edge cases:
    runs across every slice boundary, one group of all rows, no rows;
-   ``index_add_`` beside it), and at each shape the five D3 probes
+   ``index_add_`` beside it), K6 ``ba_blocks`` (local BA's per-edge
+   blocks summed per patch and per window frame pair, n_cap 16, on
+   ``tests/test_torch_ba_blocks.py``'s scenes at each shape's live edges
+   and at the retain bucket's 49152 rows; each column group no further
+   from the plain version in fp64 than 4x the plain version in fp32, plus
+   1e-6 of its largest entry; two launches bitwise equal; the dense
+   one-hot form it replaced beside it), and at each shape the five D3 probes
    (corr_probe, fp32 out of bf16 rings) beside K1 raw with each probe's
    box fit share and box bytes per edge; at each shape the share of (edge,
    level) tasks whose 9 windows fit one box (``corr_cuda.window_boxes``)
@@ -71,10 +77,10 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    480x640, M=96, bf16, ``configs/default.yaml``'s values with the 1000-frame
    patch rings (``MAX_EDGE_AGE``) in the retain regime, each override
    printed, which must propose loop edges, run ``ba_global``, launch K2, K3
-   and K4 and end with finite poses (ms/frame, global BA ms per call and
+   and K6 and end with finite poses (ms/frame, global BA ms per call and
    calls by solver, peak live and inactive edges, peak device memory, 3
    profiled frames with global BA, K2 at one eager update on the drive's
-   end state, on the 96000-row gmap ring, K3 and K4 at the drive's eager
+   end state, on the 96000-row gmap ring, K3 and K6 at the drive's eager
    calls with the most groups, K3 past 4104 live groups, the updates a
    cover served, at a raised patch capacity among them); then one
    ``ba_global`` call at that drive's largest shapes under
@@ -101,7 +107,7 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    seeded generator (every tensor checked as loaded), 64 frames of a
    rolled texture held in memory with GT poses in TartanAir's NED layout:
    ms/frame, global BA calls, the harness's ATE and AUC, peak memory and
-   the launch counts (K2, K3 and K4 must launch; the motion probe is
+   the launch counts (K2, K3 and K6 must launch; the motion probe is
    forced after 4 natural refusals, and the line says so);
 8. classic (the classic loop-closure backend's device work): PGO on a
    drifted 2000-pose loop with one Sim3 loop factor, card against CPU
@@ -110,9 +116,9 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    PGO worker's start-up on the card; the structure-only BA of
    ``estimate_3d_keypoints`` (``long_term.triangulate``) at 1024 keypoints
    x 2 edges from synthetic points projected into three poses, card
-   against CPU (points within 1e-4), K4 launched and held against its
-   plain version; ``lc_callback``'s merge of a Sim3 correction into a card
-   engine against a CPU engine (1e-5); and with ``cv2`` present the CPU
+   against CPU (points within 1e-4), K6 launched once an iteration and
+   held against its plain version; ``lc_callback``'s merge of a Sim3
+   correction into a card engine against a CPU engine (1e-5); and with ``cv2`` present the CPU
    tests' classic drive on the card, which must close a loop (with it
    absent, ``DPVO(..., CLASSIC_LOOP_CLOSURE=True)`` raising an
    ImportError naming ``cv2``);
@@ -145,7 +151,7 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    first reach), ``precompile``'s seconds, launches, no capture on the
    engine's thread inside the timed windows after ``precompile`` (the
    guard's worker's captures and the updates a cover served beside); and
-   K2, K3 and K4 at
+   K2, K3 and K6 at
    the merge drive's padded bucket (its eager update calls: the warm-ups
    of captures at first reach, one update on its end state) against
    their plain versions;
@@ -209,7 +215,7 @@ Phases (any failure exits non-zero, nothing is caught and passed over):
    1e-5; the drives' own states compared beside it); then each dev bench
    (``scripts/dev/*_torch.py``, ``benchmarks/*_torch.py``) at its quick
    setting through its ``main``, which must return 0 and print only finite
-   numbers, with K2, K3 and K4 launched in the kernel arms of
+   numbers, with K2, K3 and K6 launched in the kernel arms of
    ``bench_profile_torch`` and ``bench_ablate_torch`` and K2 not in their
    plain-correlation arms;
 14. the kernels line (one JSON object; ``launches`` from the bench merge
@@ -269,6 +275,10 @@ KERNELS = {
         replaces="dpvo_tpu/ops/agg_pallas.py:89"),
     "segment_sums": dict(source="dpvo_tpu_torch/csrc/segment_sums.cu",
                          replaces="dpvo_tpu/ops/agg_pallas.py:161"),
+    # local BA's normal equations: the JAX package sums a dense one-hot
+    # Jacobian with XLA einsums, so this replaces no TPU kernel
+    "ba_blocks": dict(source="dpvo_tpu_torch/csrc/ba_blocks.cu",
+                      replaces=None),
     **{f"corr_probe.{p}": dict(source="dpvo_tpu_torch/csrc/corr_raw.cu",
                                replaces="scripts/dev/corr_variants.py:549")
        for p in PROBES},
@@ -530,8 +540,7 @@ def segment_inputs(E, D, n_groups, dev, gen):
 def summed_groups(gid, g_cap, live=None):
     """The live groups a segment-sum call adds up: the dense ranks below
     the table's rows of its first ``live`` rows (all rows without it; a
-    padded bucket's masked rows sort last: past K3's table, in K4 a group
-    each)."""
+    padded bucket's masked rows sort last, past K3's table)."""
     from dpvo_tpu_torch.ops import agg_cuda
     rows = gid if live is None else gid[:int(live)]
     kept = rows[rows < agg_cuda.padded_groups(g_cap)]
@@ -594,6 +603,93 @@ def segment_edge_cases(dev, E, D, g_cap):
             raise SystemExit(f"segment_sums fails its edge case: {name}")
 
 
+def ba_blocks_error(args):
+    """The local-BA kernel (``ba_cuda.ba_blocks``) on ``args`` (poses,
+    centres, intrinsics, plan) against its plain version, and a second
+    launch against the first: (tests/test_torch_ba_blocks.py's
+    ``excess``: each column group's distance from the plain version in
+    fp64 over 4x the plain version's in fp32, plus 1e-6 of the group's
+    largest entry, the largest, 1 the limit; bitwise repeat; live rows;
+    live patch groups; the largest distance from the fp32 plain
+    version)."""
+    import torch
+    from dpvo_tpu_torch.ops import ba_cuda
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_ba_blocks import excess
+    pl = args[3]
+    got = ba_cuda.ba_blocks(*args)
+    again = ba_cuda.ba_blocks(*args)
+    plain = ba_cuda.ba_blocks_plain(*args)
+    ref = ba_cuda.ba_blocks_plain(*(a.double() for a in args[:3]), pl)
+    torch.cuda.synchronize()
+    err = excess(got, plain, ref, pl.n_cap)
+    abs_err = max((g - p).abs().max().item() for g, p in zip(got, plain))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    valid = ba_cuda.unpack(pl.edges[:, 3], pl.n_cap)[2]
+    live = pl.gid[valid]
+    return (err, same, int(valid.sum()),
+            int(live[live < pl.k_cap].unique().numel()), abs_err)
+
+
+def ba_blocks_work(args):
+    """(bytes, operations) the local-BA kernel needs on ``args``: each live
+    edge's row (ii, jj, kk, pair; target, weight; its pair-sorted index)
+    and each distinct patch centre and pose read once, the run tables and
+    both output tables written once; the sums' multiply-adds (a pair's 90
+    and a patch row's 14, for each of the two residual rows)."""
+    from dpvo_tpu_torch.ops import ba_cuda
+    pl = args[3]
+    valid = ba_cuda.unpack(pl.edges[:, 3], pl.n_cap)[2]
+    live = int(valid.sum())
+    rows = pl.edges[valid].long()
+    patches = int(rows[:, 2].unique().numel())
+    frames = int(rows[:, :2].unique().numel())
+    G = (pl.n_cap + 1) ** 2
+    nbytes = (live * (16 + 16 + 4) + patches * 12 + frames * 28
+              + (pl.k_cap + 1 + G + 1) * 4
+              + (pl.k_cap * (6 * pl.n_cap + 2) + G * 120) * 4)
+    return nbytes, live * 2 * 2 * (90 + 14)
+
+
+def check_ba_blocks(results, E, rows, n_frames, dev):
+    """The local-BA kernel against its plain version on a main-path scene
+    (tests/test_torch_ba_blocks.py's ``ba_case``: ``rows`` edge rows of
+    which the first E live, ``n_frames`` + 10 frames of 96 patches, n_cap
+    16 over the newest 10, k_cap 4096), its time from a CUDA graph beside
+    its bound, its plain version and the dense one-hot form it replaced
+    (``dense_normal_equations``, the yardstick)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from dpvo_tpu_torch.ops import ba_cuda
+    from test_torch_ba_blocks import ba_case, dense_normal_equations, plan_of
+    frames = n_frames + 10
+    case = ba_case(E=rows, n_frames=frames, M=96, n_cap=16, t0=frames - 10,
+                   k_cap=4096, masked=rows - E, seed=rows + E, device=dev)
+    args = (case["poses"], case["ctr"], case["intrinsics"], plan_of(case))
+    err, same, live, groups, abs_err = ba_blocks_error(args)
+    ms = graph_ms(lambda: ba_cuda.ba_blocks(*args), reps=20)
+    plain_ms = time_ms(lambda: ba_cuda.ba_blocks_plain(*args), reps=3,
+                       warm=1)
+    lib_ms = graph_ms(lambda: dense_normal_equations(*args, case["t0"]))
+    nbytes, nops = ba_blocks_work(args)
+    b_ms, b_by = bound(nbytes, nops, "f32")
+    ok = err <= 1 and same and live == E and groups > 0
+    key = E if rows == E else f"{rows} rows, {E} live"
+    log(f"[kernels] ba_blocks E={key}: {groups} live patches, "
+        f"error {err:.3f} of its limit (from the fp64 plain version, "
+        f"against 4x the fp32 plain version's; {abs_err:.3e} from it), "
+        f"two launches {'bitwise equal' if same else 'DIFFER'} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms(dense one-hot form)={lib_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} MFLOP) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"ba_blocks disagrees with its plain version, or "
+                         f"two launches differ, at {key}")
+    results.setdefault("ba_blocks", {})[key] = dict(
+        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
+
+
 # (live edges, target frames they read, patches they touch) of the engine
 # at 480x640, M=96: the merge regime with synchronous keyframing (8
 # keyframes, every patch linked to every frame), the merge regime's edge
@@ -601,6 +697,7 @@ def segment_edge_cases(dev, E, D, g_cap):
 # (22-frame removal window, 13-frame patch lifetime)
 SHAPES = ((6144, 8, 8 * 96), (14336, 16, 16 * 96), (45312, 13, 23 * 96))
 E_MAIN = SHAPES[0][0]       # the shape of the merge drive's updates
+RETAIN_BUCKET = 49152       # the retain drive's update bucket
 PROBE_SHAPES = tuple(E for E, _, _ in SHAPES)
 
 
@@ -898,6 +995,9 @@ def phase_kernels(dev):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
     segment_edge_cases(dev, SHAPES[1][0], D_ba, k_cap + 1)
+    for E, n_frames, _ in SHAPES:
+        check_ba_blocks(results, E, E, n_frames, dev)
+    check_ba_blocks(results, SHAPES[2][0], RETAIN_BUCKET, SHAPES[2][1], dev)
 
     # K2 and K1 with every other patch spread beyond one box
     E, n_frames, n_patches = SHAPES[0]
@@ -1222,11 +1322,12 @@ def last_calls():
     """Keep, passing every call through unchanged: the coords and rings of
     the last corr_enc / corr_fused call the engine makes (``box["coords"]``),
     the arguments of the last corr_enc call (``box["corr_enc"]``), those
-    of the segment_softmax_sums and segment_sums calls with the most groups
-    (``box[name]``): on a tie K3's first (an update's patch groups come
-    before its frame-pair groups) and K4's last, and those of the first K3
+    of the segment_softmax_sums call with the most groups and the
+    ba_blocks call with the largest patch capacity (``box[name]``): on a
+    tie K3's first (an update's patch groups come before its frame-pair
+    groups) and the local-BA kernel's last, and those of the first K3
     call with the most rows (``box["widest_softmax"]``); ``box["live"]``
-    maps each kept K2/K3/K4 argument tuple's ``id`` to the live row count of
+    maps each kept K2/K3 argument tuple's ``id`` to the live row count of
     the update program that made the call (a device scalar; None outside
     one: all rows live).  Calls inside a CUDA graph capture are not kept
     (their tensors live in the engine's graph pool, freed with the
@@ -1237,11 +1338,11 @@ def last_calls():
     ``end_state_update``'s run."""
     import torch
     from dpvo_tpu_torch.engine import DPVO, kernels
-    from dpvo_tpu_torch.ops import agg_cuda, corr_cuda
+    from dpvo_tpu_torch.ops import agg_cuda, ba_cuda, corr_cuda
     box = dict(coords=None, corr_enc=None, segment_softmax_sums=None,
-               segment_sums=None, widest_softmax=None, live={})
+               ba_blocks=None, widest_softmax=None, live={})
     old = (corr_cuda.corr_enc, corr_cuda.corr_fused,
-           agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
+           agg_cuda.segment_softmax_sums, ba_cuda.ba_blocks,
            kernels.update_step_dev)
     old_precompile = DPVO.precompile
     running = [None]
@@ -1280,10 +1381,10 @@ def last_calls():
             box["coords"] = (coords, f1, f2)
         return old[1](g_pre, f1, f2, coords, *rest)
 
-    def most_groups(name, fn, later):
-        def call(*args):                 # g_cap is the last argument
-            if eager() and (box[name] is None or args[-1] > box[name][-1]
-                            or later and args[-1] == box[name][-1]):
+    def most_groups(name, fn, later, cap):
+        def call(*args):
+            if eager() and (box[name] is None or cap(args) > cap(box[name])
+                            or later and cap(args) == cap(box[name])):
                 box[name] = args
                 box["live"][id(args)] = running[0]
             if name == "segment_softmax_sums" and eager() and (
@@ -1295,16 +1396,17 @@ def last_calls():
         return call
 
     corr_cuda.corr_enc, corr_cuda.corr_fused = enc, fused
-    agg_cuda.segment_softmax_sums = most_groups("segment_softmax_sums",
-                                                old[2], later=False)
-    agg_cuda.segment_sums = most_groups("segment_sums", old[3], later=True)
+    agg_cuda.segment_softmax_sums = most_groups(
+        "segment_softmax_sums", old[2], later=False, cap=lambda a: a[-1])
+    ba_cuda.ba_blocks = most_groups("ba_blocks", old[3], later=True,
+                                    cap=lambda a: a[3].k_cap)
     kernels.update_step_dev = update_dev
     DPVO.precompile = precompile
     try:
         yield box
     finally:
         (corr_cuda.corr_enc, corr_cuda.corr_fused,
-         agg_cuda.segment_softmax_sums, agg_cuda.segment_sums,
+         agg_cuda.segment_softmax_sums, ba_cuda.ba_blocks,
          kernels.update_step_dev) = old
         DPVO.precompile = old_precompile
 
@@ -1336,9 +1438,9 @@ def device_profile(prof, wall_ms, n_frames, top=8, unit="frame"):
 
 # the kernels each correlation version's engine path must launch, and the
 # correlation kernel it must not
-PATH_KERNELS = {13: ({"corr_enc", "segment_softmax_sums", "segment_sums"},
+PATH_KERNELS = {13: ({"corr_enc", "segment_softmax_sums", "ba_blocks"},
                      {"corr_fused"}),
-                12: ({"corr_fused", "segment_softmax_sums", "segment_sums"},
+                12: ({"corr_fused", "segment_softmax_sums", "ba_blocks"},
                      {"corr_enc"})}
 
 
@@ -1742,14 +1844,16 @@ def check_frame_syncs(slam, feed, intr, t, max_frames=12):
 
 
 def check_padded_kernels(last, regime):
-    """K2, K3 and K4 at the drive's padded buckets (``last_calls``: the
-    eager warm-ups of its captures at first reach and one eager update on
-    its end state; bucket rows with the rows past the live count masked:
-    in K3 ranked past its table, in K4 a group each), each against its
-    plain version and timed on a graph: K2 at the last eager call, K3 at
-    the widest, K4 at the call with the most groups.  Each call must hold
-    live rows and, for K3 and K4, live groups: a comparison on masked rows
-    alone would hold zeros against zeros."""
+    """K2, K3 and the local-BA kernel at the drive's padded buckets
+    (``last_calls``: the eager warm-ups of its captures at first reach and
+    one eager update on its end state; bucket rows with the rows past the
+    live count masked: in K3 ranked past its table, in the local-BA kernel
+    a patch rank each), each against its plain version and timed on a
+    graph: K2 at the last eager call, K3 at the widest, the local-BA kernel
+    at the last call with the largest patch capacity (also twice,
+    bitwise).  Each call must hold live rows and, for K3 and the local-BA
+    kernel, live groups: a comparison on masked rows alone would hold zeros
+    against zeros."""
     import torch
 
     def live_rows(args, rows):
@@ -1767,29 +1871,30 @@ def check_padded_kernels(last, regime):
                                                          gid, g_cap))
     live3 = live_rows(last["widest_softmax"], len(gid))
     groups3 = summed_groups(gid, g_cap, live3)
-    vals, gid4, g_cap4 = last["segment_sums"]
-    live4 = live_rows(last["segment_sums"], len(gid4))
-    groups4 = summed_groups(gid4, g_cap4, live4)
-    err4, err_ord, ok4 = check_segment_sums(vals, gid4, g_cap4)
-    ms4 = graph_ms(lambda: agg_cuda.segment_sums(vals, gid4, g_cap4))
+    from dpvo_tpu_torch.ops import ba_cuda
+    ba_args = last["ba_blocks"]
+    err_ba, same_ba, live_ba, groups_ba, _ = ba_blocks_error(ba_args)
+    ms_ba = graph_ms(lambda: ba_cuda.ba_blocks(*ba_args))
     err2 = next(iter(res["corr_enc"].values()))["max_abs_err"]
-    live_ok = min(live2, live3, live4, groups3, groups4) > 0
-    ok = ok3 and ok4 and live_ok
+    live_ok = min(live2, live3, live_ba, groups3, groups_ba) > 0
+    ok = ok3 and err_ba <= 1 and same_ba and live_ok
     log(f"[graphs] {regime} padded kernels (the drive's eager update "
         f"calls: first-reach warm-ups, the end state): K2 "
         f"{args[5].shape[0]} rows ({live2} live) at the last, max_abs_err "
         f"{err2:.3e}; K3 at the widest, E={len(gid)} ({live3} live) "
         f"{groups3} live groups, the masked rows past the table, max_abs_err "
-        f"{err3:.3e}, {ms3:.4f} ms; K4 at the most groups, E={len(gid4)} "
-        f"({live4} live) {groups4} live groups, the masked rows a group "
-        f"each, max_abs_err {err4:.3e}, row-order {err_ord:.3e} (must be "
-        f"0), {ms4:.4f} ms {'OK' if ok else 'FAIL'}")
+        f"{err3:.3e}, {ms3:.4f} ms; ba_blocks at the largest patch "
+        f"capacity, E={ba_args[3].edges.shape[0]} ({live_ba} live) "
+        f"{groups_ba} live patches, the masked rows a rank each, "
+        f"error {err_ba:.3f} of its limit, two launches "
+        f"{'bitwise equal' if same_ba else 'DIFFER'}, {ms_ba:.4f} ms "
+        f"{'OK' if ok else 'FAIL'}")
     if not live_ok:
         raise SystemExit(f"graphs: a kernel call checked at the {regime} "
                          f"drive's padded bucket held no live rows or groups")
     if not ok:
-        raise SystemExit(f"graphs: K3/K4 disagree with their plain versions "
-                         f"at the {regime} drive's padded bucket")
+        raise SystemExit(f"graphs: K3 or ba_blocks disagrees with its plain "
+                         f"version at the {regime} drive's padded bucket")
     torch.cuda.synchronize()
 
 
@@ -1931,8 +2036,8 @@ def phase_graphs(dev, bench=None):
     runs) and eagerly: ms/frame, the phases' dispatch, device idle,
     buckets, capture ms, precompile, pool bytes against the first-reach
     pools of (a) and (b)'s engines, no capture in the timed windows; and
-    K2/K3/K4 against their plain versions at the merge drive's padded
-    bucket."""
+    K2, K3 and K6 (local BA) against their plain versions at the merge
+    drive's padded bucket."""
     t_phase = time.perf_counter()
     first = {}
     for regime, bucket in GRAPH_CHECKS.items():
@@ -2527,10 +2632,12 @@ def drive_lc(dev, n_frames=LC_FULL_FRAMES, ht=480, wd=640):
 
 def check_lc_kernels(last):
     """K2 at the full drive's end state (``end_state_update``, its
-    1000-frame gmap ring), and K3 and K4 at the drive's eager calls with
-    the most groups (``last_calls``: the captures' warm-ups and the end
-    state's run), each against its plain version; K3 must see more live
-    patch groups than phase 2's 4104."""
+    1000-frame gmap ring), and K3 and the local-BA kernel at the drive's
+    eager calls with the most groups and the largest patch capacity
+    (``last_calls``: the captures' warm-ups, the end state's run and, for
+    the local-BA kernel, global BA's ``ba_iterative`` calls), each against
+    its plain version; K3 must see more live patch groups than phase 2's
+    4104."""
     import torch
     args = last["corr_enc"]
     k2 = {}
@@ -2554,18 +2661,18 @@ def check_lc_kernels(last):
         raise SystemExit("segment_softmax_sums disagrees with its plain "
                          "version on the loop-closure drive, or saw no more "
                          "than 4104 groups")
-    vals, gid, g_cap = last["segment_sums"]
-    live = last["live"][id(last["segment_sums"])]
-    err, err_ord, ok = check_segment_sums(vals, gid, g_cap)
-    log(f"[lc] K4 at the drive's last eager call with the most groups: "
-        f"E={len(gid)}, {summed_groups(gid, g_cap, live)} live groups, "
-        f"g_cap={g_cap}: max_abs_err="
-        f"{err:.3e} tol=rtol {TOL_SEG[0]} atol {TOL_SEG[1]}; against the "
-        f"row-order reference {err_ord:.3e} (must be 0) "
-        f"{'OK' if ok else 'FAIL'}")
+    args = last["ba_blocks"]
+    err, same, live, groups, _ = ba_blocks_error(args)
+    ok = err <= 1 and same and groups > 0
+    log(f"[lc] ba_blocks at the drive's last eager call with the largest "
+        f"patch capacity: E={args[3].edges.shape[0]} ({live} live), "
+        f"{groups} live patches, k_cap={args[3].k_cap}, "
+        f"n_cap={args[3].n_cap}: error {err:.3f} of its limit (from the "
+        f"fp64 plain version, against 4x the fp32 one's), two launches "
+        f"{'bitwise equal' if same else 'DIFFER'} {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("segment_sums disagrees with its plain version or "
-                         "the row-order reference on the loop-closure drive")
+        raise SystemExit("ba_blocks disagrees with its plain version, or two "
+                         "launches differ, on the loop-closure drive")
     torch.cuda.synchronize()
 
 
@@ -2996,7 +3103,7 @@ def phase_eval(dev, n_frames=EVAL_FRAMES, ht=480, wd=640):
     in TartanAir's NED layout.  The motion probe runs as it is; after
     EVAL_PROBE_REFUSALS refusals (random weights may never pass it) it is
     forced, and the line says so.  Launch counts zeroed just before the
-    drive and read just after; K2, K3 and K4 must launch."""
+    drive and read just after; K2, K3 and K6 (local BA) must launch."""
     import torch
     import evaluate_tartan_torch as ev
     from dpvo_tpu_torch.config import VOConfig
@@ -3142,9 +3249,10 @@ def pgo_worker_startup(dev):
 def phase_classic(dev):
     """The classic backend's device work, card against CPU: PGO at
     PGO_POSES poses, the structure-only BA of estimate_3d_keypoints at
-    TRIANGULATE_K keypoints (K4 launched and held against its plain
-    version), the merge of a Sim3 correction into an engine; the spawned
-    worker's start-up; and the construction rule for cv2."""
+    TRIANGULATE_K keypoints (the local-BA kernel launched once an
+    iteration and held against its plain version), the merge of a Sim3
+    correction into an engine; the spawned worker's start-up; and the
+    construction rule for cv2."""
     import torch
     from dpvo_tpu_torch.config import VOConfig
     from dpvo_tpu_torch.engine import DPVO
@@ -3212,25 +3320,27 @@ def phase_classic(dev):
                 torch.from_numpy(intr).to(dev), uv[1], targets)
             torch.cuda.synchronize()
             ms_ba.append((time.perf_counter() - t0) * 1e3)
-    k4 = _cuda.launches["segment_sums"]
-    vals, gid, g_cap = last["segment_sums"]
-    seg_err, seg_ord, seg_ok = check_segment_sums(vals, gid, g_cap)
+    n_ba = _cuda.launches["ba_blocks"]
+    ba_err, ba_same, _, ba_groups, _ = ba_blocks_error(last["ba_blocks"])
+    ba_ok = ba_err <= 1 and ba_same and ba_groups == K
     want = long_term.triangulate(torch.from_numpy(poses3),
                                  torch.from_numpy(intr), uv[1], targets)
     err = float(np.abs(pts - want).max())
     truth = float(np.abs(pts - X).max())
-    ok = err <= TOL_POINTS and k4 == 6 and seg_ok and truth < 1e-2
+    ok = err <= TOL_POINTS and n_ba == 6 and ba_ok and truth < 1e-2
     log(f"[classic] structure-only BA (triangulate, {K} keypoints x 2 edges, "
         f"6 iterations): card {ms_ba[0]:.1f} ms first call, {ms_ba[1]:.1f} "
-        f"ms second (K4 counted in the second), points card against CPU "
-        f"{err:.3e} (tol {TOL_POINTS}), from the true points {truth:.3e}; "
-        f"K4 launches {k4}, at its last call E={len(gid)} g_cap={g_cap} "
-        f"max_abs_err {seg_err:.3e} against the plain version, "
-        f"{seg_ord:.3e} against the row-order reference (must be 0) "
+        f"ms second (ba_blocks counted in the second), points card against "
+        f"CPU {err:.3e} (tol {TOL_POINTS}), from the true points "
+        f"{truth:.3e}; ba_blocks launches {n_ba}, at its last call "
+        f"{ba_groups} patches, error {ba_err:.3f} of its limit (from the "
+        f"fp64 plain version, against 4x the fp32 one's), two launches "
+        f"{'bitwise equal' if ba_same else 'DIFFER'} "
         f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the structure-only BA disagrees between the card "
-                         "and the CPU, or K4 disagrees with its plain version")
+                         "and the CPU, or ba_blocks disagrees with its plain "
+                         "version")
 
     # lc_callback's merge, on a card engine and a CPU engine
     M, n, m = 8, 24, 20
@@ -4265,7 +4375,7 @@ TOOLS = (("scripts/dev/frame_profile_torch.py", ["quick"]),
          ("benchmarks/compare_scatter_torch.py", []),
          ("benchmarks/benchmark_dataloader_torch.py", ["quick"]),
          ("scripts/dev/lc_match_bench_torch.py", []))
-# the arms whose K2/K3/K4 launches are checked: (tool, arm) -> kernels arm
+# the arms whose K2/K3/K6 launches are checked: (tool, arm) -> kernels arm
 TOOL_ARMS = {("bench_profile", "update_step kernels"): True,
              ("bench_profile", "update_step plain correlation"): False,
              ("bench_ablate", "full"): True,
@@ -4371,21 +4481,21 @@ def run_tool(path, argv):
 
 
 def check_tool_arms(tool, out):
-    """K2, K3 and K4 launched in the kernel arms, K2 not in the plain
-    correlation arms."""
+    """K2, K3 and K6 (local BA) launched in the kernel arms, K2 not in the
+    plain correlation arms."""
     seen = set()
     num = r"(\d+(?:\.\d+)?)"
     for m in re.finditer(r"^\[(\w+)\] ([^:(\n]+?)(?: \(E=\d+\))?: .*launches "
-                         rf"K2 {num} K3 {num} K4 {num}", out, re.M):
+                         rf"K2 {num} K3 {num} K6 {num}", out, re.M):
         arm = (m.group(1), m.group(2))
         if arm not in TOOL_ARMS:
             continue
-        k2, k3, k4 = (float(m.group(i)) for i in (3, 4, 5))
-        ok = (min(k2, k3, k4) > 0 if TOOL_ARMS[arm]
-              else k2 == 0 and min(k3, k4) > 0)
+        k2, k3, k6 = (float(m.group(i)) for i in (3, 4, 5))
+        ok = (min(k2, k3, k6) > 0 if TOOL_ARMS[arm]
+              else k2 == 0 and min(k3, k6) > 0)
         if not ok:
             raise SystemExit(f"tools: {arm} launched K2 {k2}, K3 {k3}, "
-                             f"K4 {k4}")
+                             f"K6 {k6}")
         seen.add(arm)
     want = {a for a in TOOL_ARMS if a[0] == tool}
     if seen != want:
@@ -4514,7 +4624,8 @@ def main(argv):
     launches = {**bench["merge"]["launches"], **probe_launches,
                 "corr_fused": raw["launches"]["corr_fused"],
                 "corr_single": single_launches}
-    # the kernels line holds K2, K3 and K4 at the lagged merge shape of the
+    # the kernels line holds K2, K3, K4 and the local-BA kernel at the
+    # lagged merge shape of the
     # default configuration, K1 in the version-12 drive's layout, K5 in
     # corr_grouped's reference order, the probes at the D3 path's shape
     # and the stamps on the engine's ring (their launches from the bench
@@ -4527,7 +4638,7 @@ def main(argv):
         r = kern[name][picks.get(name, SHAPES[1][0])]
         line["kernels"].append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
+            replaces=meta["replaces"], launches=launches.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

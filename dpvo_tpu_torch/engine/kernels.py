@@ -202,7 +202,7 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
     sort to the tail as one group, whose rank stays inside the pair
     poses' capacity (k_cap + 8).  No segment sum adds that tail as one
     long run: the SoftAggs rank it past their table here
-    (``agg_cuda.skip_masked``), BA's sums take it as a group per row
+    (``agg_cuda.skip_masked``), local BA gives it a patch rank per row
     (``agg_cuda.split_masked`` in ``ba_iterative``).  Writes rows
     [0, bucket) of net/target/weight, poses and patches IN PLACE (a graph
     holds the addresses).  -> (delta (bucket, 2), magnitude (device
@@ -257,8 +257,7 @@ def update_step_dev(ds: DeviceState, update_mod: Update, bucket, e_num,
         poses, patches = ba.ba_iterative(
             ds.poses, ds.patches, ds.intrinsics[0], target, weight, 1e-4,
             ii, jj, kk, valid, t0, t1, n_cap=n_cap, k_cap=k_cap,
-            iterations=iterations, eperm=order, pair_gid=gid_o_ij,
-            pair_cap=g_cap, pair_rep=pair_rep)
+            iterations=iterations, eperm=order)
         ds.poses.copy_(poses)
         ds.patches.copy_(patches)
     if stamp:

@@ -34,7 +34,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("corr_enc.cu", "corr_raw.cu", "segment_sums.cu", "stamp.cu")
+SOURCES = ("ba_blocks.cu", "corr_enc.cu", "corr_raw.cu", "segment_sums.cu",
+           "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "dpvo_segment_sums": [_VP] * 3 + [_I] * 3 + [_VP],
     "dpvo_stamp_set": [_VP, _VP, _L] + [_I] * 3 + [_VP],
     "dpvo_stamp_graph": [_VP] * 2 + [_I] * 3 + [_VP],
+    "dpvo_ba_blocks": [_VP] * 10 + [_I] * 2 + [_VP],
 }
 
 

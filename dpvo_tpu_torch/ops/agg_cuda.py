@@ -6,8 +6,10 @@ of ``csrc/segment_sums.cu``:
 - ``segment_softmax_sums`` — the SoftAgg reductions (two per update):
   ``T1[g] = sum exp(gate - shift)``, ``T2[g] = sum exp(gate - shift) * val``
   (one block per group);
-- ``segment_sums`` — the BA pose-depth coupling sums (one per GN
-  iteration; blocks own row slices and sum the runs that start in them).
+- ``segment_sums`` — the JAX package's BA pose-depth coupling sums
+  (blocks own row slices and sum the runs that start in them).  The port's
+  local BA sums its coupling inside ``ba_cuda.ba_blocks``, so no engine
+  path launches it.
 
 Both kernels add each group's rows in row order from 0 in fp32, so
 ``segment_sums`` equals ``segment_sums_ordered`` (the plain version in that
@@ -39,7 +41,8 @@ def padded_groups(g_cap: int) -> int:
 # A padded edge bucket keys its masked rows to INT_MAX, so they sort to
 # the tail as one group of up to thousands of rows, which a kernel adds as
 # one run on one block (K3 and K4 read 3-39x their live-row times so).
-# Two ways keep that run out, one per kernel's contract; both leave the
+# Two ways keep that run out, one per kernel's contract (K3's; local BA's
+# patch ranks, ``ba_cuda.ba_blocks``, one warp a rank); both leave the
 # live groups' sums as they were.
 
 def skip_masked(gid_sorted, live_sorted, g_cap):
@@ -56,7 +59,8 @@ def split_masked(gid_sorted, live_sorted):
     tail a group per row: its ranks count up by one a row from its own,
     so they stay dense (step <= 1, no gap), as ``segment_sums`` needs (it
     writes no row inside a gap), and the ranks past the table are dropped
-    as before."""
+    as before: local BA's patch ranks, so that no warp of
+    ``ba_cuda.ba_blocks`` walks the whole tail."""
     tail = torch.cumsum(~live_sorted, 0, dtype=gid_sorted.dtype) - 1
     return gid_sorted + torch.where(live_sorted, 0, tail)
 

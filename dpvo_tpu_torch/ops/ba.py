@@ -9,16 +9,17 @@ step, differentiable through the Cholesky solve).  ``ba_iterative``: the referen
 robust masks (residual < 128 px, Z > 0.2, +-64 px in bounds), damping
 ``S += diag(1e-4 * S + 1)``, a finite-guarded Cholesky solve that skips the
 update when it fails, and the depth reset (d > 20 -> 1, floor 1e-4).
-Everything is fp32; callers keep TF32 off.  The pose-depth coupling
-columns reduce over kk-sorted runs through ``ops.agg_cuda.segment_sums``
-(the CUDA kernel on the card, its plain twin on the CPU).
+Everything is fp32; callers keep TF32 off.  ``ba_iterative`` forms its
+normal equations with ``ops.ba_cuda`` (per-edge blocks summed per patch and
+per window frame pair: the CUDA kernel on the card, its plain twin on the
+CPU); the other solvers from ``_edge_terms_center``'s per-edge terms.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from . import agg_cuda, lie, projective as pops
+from . import agg_cuda, ba_cuda, lie, projective as pops
 from .scatter import INT_MAX, compactify
 
 
@@ -88,96 +89,63 @@ def _patch_slots(kk_m, eperm, k_cap, K):
     return ku[eperm].int(), kx, slot_of_k, hit_k
 
 
+def _edge_plan(ii, jj, kk, valid, target, weight, t0, n_cap, k_cap, K,
+               eperm=None):
+    """``ba_iterative``'s edges as ``ba_cuda.ba_blocks`` reads them, sorted
+    by patch (``eperm``, made here when not given), the masked rows a
+    patch rank each (``agg_cuda.split_masked``), and its depth slots: ->
+    (plan, kx, slot_of_k, hit_k) (``_patch_slots``' last three)."""
+    kk_m = torch.where(valid, kk.long(), INT_MAX)
+    if eperm is None:
+        eperm = torch.sort(kk_m, stable=True).indices
+    gid, kx, slot_of_k, hit_k = _patch_slots(kk_m, eperm, k_cap, K)
+    valid = valid[eperm]
+    plan = ba_cuda.plan(ii[eperm], jj[eperm], kk[eperm], valid,
+                        target[eperm], weight[eperm],
+                        agg_cuda.split_masked(gid, valid), t0, n_cap, k_cap)
+    return plan, kx, slot_of_k, hit_k
+
+
 def ba_iterative(poses, patches, intrinsics, target, weight, lmbda,
                  ii, jj, kk, valid, t0, t1, n_cap, k_cap, iterations=2,
-                 eperm=None, pair_gid=None, pair_cap=None, pair_rep=None):
+                 eperm=None):
     """Inference BA; returns (poses', patches') without touching the inputs.
 
     poses (Np, 7); patches (Kp, 3, P, P); intrinsics (4,) shared
     [fx, fy, cx, cy]; target, weight (E, 2); lmbda float; ii, jj, kk (E,)
     int; valid (E,) bool; poses in [t0, t1) are free (host ints or
-    integer device scalars); n_cap >= t1 - t0 pose-block capacity; k_cap
-    unique-patch capacity.  Runs with no host synchronisation, so it can be
-    captured in a CUDA graph.  The masked rows enter the coupling sums as
-    a group each (``agg_cuda.split_masked``), with zero weight.
+    integer device scalars); n_cap >= t1 - t0 pose-block capacity, at most
+    ``ba_cuda.MAX_N_CAP``; k_cap unique-patch capacity.  Runs with no host
+    synchronisation, so it can be captured in a CUDA graph.  Each
+    iteration's normal equations come from one ``ba_cuda.ba_blocks`` launch
+    over the kk-sorted edges (coupling rows per patch, blocks per window
+    frame pair; each edge's relative pose formed from its two poses, the
+    same for every edge of a pair); the masked rows take a patch rank each
+    (``agg_cuda.split_masked``), with zero weight.
     eperm      optional stable sort of the valid-masked kk (any tie order)
-    pair_gid   optional (E,) dense frame-pair ranks (< pair_cap) in input
-               order: relative poses per PAIR instead of per edge
-    pair_rep   optional (pair_cap,) representative input-order edge per
-               pair rank
     """
     poses = poses.float()
     patches = patches.float().clone()
-    target = target.float()
-    weight = weight.float()
-    fx, fy, cx, cy = intrinsics.float().unbind()
+    intrinsics = intrinsics.float()
     dev = poses.device
-    E = ii.shape[0]
     K = patches.shape[0]
     P = patches.shape[-1]
-
-    kk_m = torch.where(valid, kk.long(), INT_MAX)
-    if eperm is None:
-        eperm = torch.sort(kk_m, stable=True).indices
-    gid, kx, slot_of_k, hit_k = _patch_slots(kk_m, eperm, k_cap, K)
+    plan, kx, slot_of_k, hit_k = _edge_plan(
+        ii, jj, kk, valid, target, weight, t0, n_cap, k_cap, K, eperm)
     kx_c = kx.clamp(0, K - 1)
-    ii_o, jj_o = ii.long(), jj.long()
-    ii, jj, kk = ii_o[eperm], jj_o[eperm], kk.long()[eperm]
-    valid = valid[eperm]
-    gid = agg_cuda.split_masked(gid, valid)
-    target = target[eperm]
-    weight = weight[eperm]
-
-    pg = rep_ii = rep_jj = None
-    if pair_gid is not None:
-        pg = pair_gid.long()[eperm]
-        if pair_rep is not None:
-            rep_ii, rep_jj = ii_o[pair_rep], jj_o[pair_rep]
-        else:
-            rep = torch.full((pair_cap,), E - 1, dtype=torch.int64,
-                             device=dev)
-            rep.scatter_reduce_(0, pg, torch.arange(E, device=dev), "amin")
-            rep_ii, rep_jj = ii[rep], jj[rep]
 
     ctr = patches[:, :, P // 2, P // 2].clone()              # (K, 3)
     D = 6 * n_cap
-    cols = torch.arange(n_cap, device=dev)
     pose_slot = torch.arange(poses.shape[0], device=dev)
     lp = pose_slot - t0
     free = ((lp >= 0) & (pose_slot < t1))[:, None]
     lp_c = lp.clamp(0, n_cap - 1)
 
     for _ in range(iterations):
-        Gij_e = None
-        if pg is not None:
-            Gij_e = lie.se3_mul(poses[rep_jj], lie.se3_inv(poses[rep_ii]))[pg]
-        r, mask, Ji, Jj, Jz = _edge_terms_center(
-            poses, ctr, fx, fy, cx, cy, target, ii, jj, kk, Gij=Gij_e)
-        w = mask[:, None] * weight * valid[:, None]          # (E, 2)
-
-        # effective pose Jacobian over the n_cap window: -Ji at block
-        # li, +Jj at block lj (fixed poses masked out)
-        li, lj = ii - t0, jj - t0
-        vi = (li >= 0) & (li < n_cap) & valid
-        vj = (lj >= 0) & (lj < n_cap) & valid
-        oh_i = ((li.clamp(0, n_cap - 1)[:, None] == cols)
-                & vi[:, None]).float()
-        oh_j = ((lj.clamp(0, n_cap - 1)[:, None] == cols)
-                & vj[:, None]).float()
-        Jeff = (-oh_i[:, None, :, None] * Ji[:, :, None, :]
-                + oh_j[:, None, :, None] * Jj[:, :, None, :]
-                ).reshape(E, 2, D)
-        wJeff = w[:, :, None] * Jeff
-
-        B = wJeff.reshape(-1, D).t() @ Jeff.reshape(-1, D)
-        vvec = torch.einsum("era,er->a", wJeff, r)
-        A = torch.einsum("er,era->ea", w * Jz, Jeff)         # (E, D)
-        Cu_rows = torch.stack([(w * Jz * Jz).sum(1), (w * r * Jz).sum(1)],
-                              dim=-1)
-        S = agg_cuda.segment_sums(torch.cat([A, Cu_rows], dim=1), gid,
-                                  k_cap + 1)[:k_cap]
-        Emat = S[:, :D].t()                                  # (D, k_cap)
-        C, u = S[:, D], S[:, D + 1]
+        ecu, blocks = ba_cuda.ba_blocks(poses, ctr, intrinsics, plan)
+        B, vvec = ba_cuda.assemble(blocks, n_cap)
+        Emat = ecu[:, :D].t()                                # (D, k_cap)
+        C, u = ecu[:, D], ecu[:, D + 1]
 
         Q = 1.0 / (C + lmbda)
         EQ = Emat * Q[None, :]

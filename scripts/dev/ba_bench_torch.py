@@ -13,11 +13,16 @@ The port's BA runs at the live count.  Device ms per call
 (``microbench_torch.timed``, from a CUDA graph: ``ba_iterative`` runs with
 no host synchronisation) of:
 
-- ``ba_iterative``, 2 iterations (K4 for the pose-depth coupling sums);
-- its per-iteration phases: the sort and patch slots, the residuals and
-  Jacobians (``_edge_terms_center``), the one-hot effective Jacobian with
-  its Hessian and gradient products, the K4 coupling sums, the Schur
-  complement and its Cholesky solve (96x96), the pose retraction;
+- ``ba_iterative``, 2 iterations;
+- its phases: once a call the sort, the patch slots and the kernel's plan
+  (``_edge_plan``); each iteration the per-edge blocks summed per patch
+  and per frame pair (``ba_cuda.ba_blocks``, one launch), their assembly
+  into B and v (``ba_cuda.assemble``), the Schur complement and its
+  Cholesky solve (96x96), the pose retraction;
+- the dense one-hot form those blocks replaced, as the yardstick, per
+  iteration: the residuals and Jacobians (``_edge_terms_center``), the
+  one-hot effective Jacobian with its Hessian and gradient products, the
+  K4 coupling sums;
 - with ``cg``, ``ba_global`` (2 iterations; PCG with ``index_add_`` sums)
   at ``cg_iters`` 12, 24 and 48 on the same edges.
 
@@ -72,41 +77,66 @@ def args_of(pb):
 
 
 def phases(pb):
-    """{phase: zero-argument function} of one ``ba_iterative`` iteration
-    body, on ``pb``'s edges."""
+    """{phase: zero-argument function} of ``ba_iterative``'s set-up and one
+    iteration body, then the dense form's per-iteration phases, on
+    ``pb``'s edges."""
     import torch
-    from dpvo_tpu_torch.ops import agg_cuda, lie
-    from dpvo_tpu_torch.ops.ba import (INT_MAX, _edge_terms_center,
-                                       _patch_slots)
+    from dpvo_tpu_torch.ops import agg_cuda, ba_cuda, lie
+    from dpvo_tpu_torch.ops.ba import _edge_plan, _edge_terms_center
     poses, patches, target, weight = (pb[k] for k in ("poses", "patches",
                                                       "target", "weight"))
     ii, jj, kk, valid = (pb[k] for k in ("ii", "jj", "kk", "valid"))
-    fx, fy, cx, cy = pb["intrinsics"].unbind()
+    intr = pb["intrinsics"]
+    fx, fy, cx, cy = intr.unbind()
     E, dev, t0 = ii.shape[0], ii.device, N_NOW - 10
     D = 6 * N_CAP
     cols = torch.arange(N_CAP, device=dev)
     ctr = patches[:, :, P // 2, P // 2].clone()
 
-    def sort_slots():
-        kk_m = torch.where(valid, kk, INT_MAX)
-        eperm = torch.sort(kk_m, stable=True).indices
-        gid, kx, slot_of_k, hit_k = _patch_slots(kk_m, eperm, K_CAP,
-                                                 patches.shape[0])
-        return (ii[eperm], jj[eperm], kk[eperm], target[eperm],
-                weight[eperm], gid, kx, slot_of_k, hit_k)
+    def plan():
+        return _edge_plan(ii, jj, kk, valid, target, weight, t0, N_CAP,
+                          K_CAP, patches.shape[0])
+
+    pl = plan()[0]
+
+    def blocks():
+        return ba_cuda.ba_blocks(poses, ctr, intr, pl)
+
+    ecu, tab = blocks()
+
+    def assemble():
+        return ba_cuda.assemble(tab, N_CAP)
+
+    B, vvec = assemble()
+
+    def schur_solve():
+        Emat, C, u = ecu[:, :D].t(), ecu[:, D], ecu[:, D + 1]
+        Q = 1.0 / (C + 1e-4)
+        EQ = Emat * Q[None, :]
+        Sm = B - EQ @ Emat.t()
+        y = vvec - EQ @ u
+        Sm = Sm + torch.diag(1e-4 * torch.diagonal(Sm) + 1.0)
+        L, _ = torch.linalg.cholesky_ex(Sm)
+        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
+        return dX, Q * (u - Emat.t() @ dX)
+
+    dxi = torch.tanh(poses[:, :6]) * 1e-3
+
+    # the dense form, on the plan's kk-sorted rows
+    ii_s, jj_s, kk_s = (pl.edges[:, i].long() for i in range(3))
+    target_s, weight_s = pl.tw[:, :2], pl.tw[:, 2:]
 
     def terms():
-        return _edge_terms_center(poses, ctr, fx, fy, cx, cy, target, ii,
-                                  jj, kk)
+        return _edge_terms_center(poses, ctr, fx, fy, cx, cy, target_s,
+                                  ii_s, jj_s, kk_s)
 
     r, mask, Ji, Jj, Jz = terms()
-    w = mask[:, None] * weight * valid[:, None]
-    gid = sort_slots()[5]
+    w = mask[:, None] * weight_s
 
     def jeff():
-        li, lj = ii - t0, jj - t0
-        vi = (li >= 0) & (li < N_CAP) & valid
-        vj = (lj >= 0) & (lj < N_CAP) & valid
+        li, lj = ii_s - t0, jj_s - t0
+        vi = (li >= 0) & (li < N_CAP)
+        vj = (lj >= 0) & (lj < N_CAP)
         oh_i = ((li.clamp(0, N_CAP - 1)[:, None] == cols)
                 & vi[:, None]).float()
         oh_j = ((lj.clamp(0, N_CAP - 1)[:, None] == cols)
@@ -122,35 +152,21 @@ def phases(pb):
         return (wJ.reshape(-1, D).t() @ Je.reshape(-1, D),
                 torch.einsum("era,er->a", wJ, r))
 
-    B, vvec = hessian()
     A = torch.einsum("er,era->ea", w * Jz, Jeff)
     Cu = torch.stack([(w * Jz * Jz).sum(1), (w * r * Jz).sum(1)], dim=-1)
     AC = torch.cat([A, Cu], dim=1)
 
     def coupling():
-        return agg_cuda.segment_sums(AC, gid, K_CAP + 1)
+        return agg_cuda.segment_sums(AC, pl.gid, K_CAP + 1)
 
-    S = coupling()[:K_CAP]
-
-    def schur_solve():
-        Emat, C, u = S[:, :D].t(), S[:, D], S[:, D + 1]
-        Q = 1.0 / (C + 1e-4)
-        EQ = Emat * Q[None, :]
-        Sm = B - EQ @ Emat.t()
-        y = vvec - EQ @ u
-        Sm = Sm + torch.diag(1e-4 * torch.diagonal(Sm) + 1.0)
-        L, _ = torch.linalg.cholesky_ex(Sm)
-        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
-        return dX, Q * (u - Emat.t() @ dX)
-
-    dxi = torch.tanh(poses[:, :6]) * 1e-3
-
-    return {"sort + patch slots": sort_slots,
-            "residuals + Jacobians": terms,
-            "one-hot J_eff + Hessian + gradient": hessian,
-            "coupling sums (K4)": coupling,
+    return {"sort + patch slots + plan (once a call)": plan,
+            "per-edge blocks (ba_blocks)": blocks,
+            "assemble B, v": assemble,
             "Schur + Cholesky solve (96x96)": schur_solve,
-            "pose retraction": lambda: lie.se3_retr(poses, dxi)}
+            "pose retraction": lambda: lie.se3_retr(poses, dxi),
+            "[dense form] residuals + Jacobians": terms,
+            "[dense form] one-hot J_eff + Hessian + gradient": hessian,
+            "[dense form] coupling sums (K4)": coupling}
 
 
 def bench(dev, rows=49152, live=None, cg=False, reps=10, windows=5):

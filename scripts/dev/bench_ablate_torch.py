@@ -22,7 +22,7 @@ capture the engine's worker may hold), in seven runs:
 - no in-update motion magnitude: no keyframe candidate is queued, and no
   decision applies.
 
-Prints ms/frame, FPS and the K2, K3 and K4 launches of the timed frames of
+Prints ms/frame, FPS and the K2, K3 and K6 (local BA) launches of the timed frames of
 each run.  Needs a CUDA card.
 """
 from __future__ import annotations

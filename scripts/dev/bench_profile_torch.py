@@ -14,7 +14,7 @@ with the plain correlation swapped in (``chip_smoke.plain_correlation``)
 and without BA; ``motionmag`` of the keyframe candidate's edges, cold (its
 first call) and steady; ``permute_edges`` (identity, the live rows) and
 ``keyframe_merge`` (the engine's merge program, eagerly).  Each line gives
-the K2, K3 and K4 launches of its timed calls, per call; the header gives
+the K2, K3 and K6 (local BA) launches of its timed calls, per call; the header gives
 ``n`` and ``e_num``.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ import microbench_torch as mb
 HT, WD = 480, 640
 N_STEADY = 26
 KERNELS = (("K2", "corr_enc"), ("K3", "segment_softmax_sums"),
-           ("K4", "segment_sums"))
+           ("K6", "ba_blocks"))
 
 
 def bench_engine(dev, n_frames=N_STEADY, patch=None, seed=0):
@@ -58,7 +58,7 @@ def bench_engine(dev, n_frames=N_STEADY, patch=None, seed=0):
 
 
 def launch_note(counts, per=1):
-    """``launches K2 a K3 b K4 c``: the counts divided by ``per``."""
+    """``launches K2 a K3 b K6 c``: the counts divided by ``per``."""
     return "launches " + " ".join(f"{k} {counts.get(name, 0) / per:g}"
                                   for k, name in KERNELS)
 
@@ -66,7 +66,7 @@ def launch_note(counts, per=1):
 def wall(name, fn, reps):
     """Median wall ms of ``fn()`` with a wait on the stream (not the device:
     that would fail a capture the engine's worker may hold), over ``reps``
-    calls after one warm call; prints the line with the K2/K3/K4 launches
+    calls after one warm call; prints the line with the K2/K3/K6 launches
     of the timed calls.  -> (ms, launches)."""
     import torch
     from dpvo_tpu_torch.ops import _cuda

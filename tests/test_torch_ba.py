@@ -1,8 +1,10 @@
 """The port's ``ba_iterative`` against ``dpvo_tpu.ops.ba.ba_iterative`` on
-CPU, on the synthetic problem of tests/test_ba.py.  The port always
-reduces the pose-depth coupling with the segment sums (K4's plain version
-here); the JAX function on CPU takes its cumsum-difference path, so this
-also holds the two formulations against each other.
+CPU, on the synthetic problem of tests/test_ba.py.  The port sums per-edge
+6-wide blocks per patch and per window frame pair (``ops.ba_cuda``, its
+plain version here), each edge's relative pose formed from its two poses;
+the JAX function forms the dense one-hot Jacobian, takes its
+cumsum-difference path for the coupling and, where given, per-pair
+relative poses, so this also holds the formulations against each other.
 
 Tolerances (fp32): poses atol 1e-4; depths atol 3e-4.  The targets are
 exact reprojections, so the depth direction is weakly observable
@@ -53,9 +55,7 @@ def _run_both(poses0, patches0, intr, target, weight, ii, jj, kk, valid,
     got = tba.ba_iterative(
         t(poses0), t(patches0), t(intr), t(target), t(weight), 1e-4, t(ii),
         t(jj), t(kk), t(valid), t0, t1, n_cap=n_cap, k_cap=k_cap,
-        iterations=iterations,
-        **{k: (t(v).long() if k != "pair_cap" else v)
-           for k, v in pair.items()})
+        iterations=iterations)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=ATOL_POSE)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
@@ -181,13 +181,13 @@ def test_ba_sync_free_matches_the_old_results(monkeypatch, n_invalid,
 
 @pytest.mark.parametrize("k_cap", [256, 128])
 def test_ba_masked_rows_are_a_group_each(monkeypatch, k_cap):
-    """The ranks ``ba_iterative`` hands its coupling sums (K4) when rows
-    are masked: dense from 0 with steps of at most 1 (K4 writes no row
-    inside a gap), the live rows' ranks those of the sort, and the masked
-    tail a group per row, so no run adds the whole tail.  The results are
+    """The patch ranks ``ba_iterative`` hands ``ba_cuda.ba_blocks`` (its
+    plain version here) when rows are masked: dense from 0 with steps of at
+    most 1, the live rows' ranks those of the sort, and the masked tail a
+    group per row, so no warp walks the whole tail.  The results are
     bitwise those of the tail summed as one group of zero-weight rows;
     at k_cap 128 live patches also fall past the depth capacity."""
-    from dpvo_tpu_torch.ops import agg_cuda
+    from dpvo_tpu_torch.ops import agg_cuda, ba_cuda
     poses_gt, patches_gt, intr, _, target, ii, jj, kk = build_problem(KEY)
     n = poses_gt.shape[0]
     noise = jax.random.normal(jax.random.PRNGKey(5), (n, 6)) * 0.02
@@ -198,13 +198,13 @@ def test_ba_masked_rows_are_a_group_each(monkeypatch, k_cap):
             t(np.ones((E, 2), np.float32)), 1e-4, t(ii), t(jj), t(kk),
             t(valid), 1, n)
     kw = dict(n_cap=8, k_cap=k_cap, iterations=2)
-    ranks, sums = [], agg_cuda.segment_sums
+    ranks, plain = [], ba_cuda.ba_blocks_plain
 
-    def recorded(vals, gid, g_cap):
-        ranks.append(gid.clone())
-        return sums(vals, gid, g_cap)
+    def recorded(poses, ctr, intrinsics, pl):
+        ranks.append(pl.gid.clone())
+        return plain(poses, ctr, intrinsics, pl)
 
-    monkeypatch.setattr(agg_cuda, "segment_sums", recorded)
+    monkeypatch.setattr(ba_cuda, "ba_blocks_plain", recorded)
     got = tba.ba_iterative(*args, **kw)
     gid = ranks[-1].long()
     steps = torch.diff(gid)

@@ -29,9 +29,16 @@ other values within tolerance), at edge counts that leave the last block
 partial.  The classic loop-closure backend's device work: PGO on a drifted
 300-pose loop, card against CPU within 1e-3 after first-pose alignment
 (the CPU tests' gate against the JAX package), and the structure-only BA
-of ``long_term.triangulate`` at 1024 keypoints with K4 launched, points
-within 1e-4 of the CPU's.  The engine's update program replayed as a CUDA
-graph equals the same program run eagerly, bitwise, and each replay counts
+of ``long_term.triangulate`` at 1024 keypoints with the local-BA kernel
+launched, points within 1e-4 of the CPU's.  The local-BA kernel
+(``ba_cuda.ba_blocks``) against its plain version on
+tests/test_torch_ba_blocks.py's scenes (each column group no further from
+the plain version in fp64 than 4x the plain version in fp32 is, plus 1e-6
+of the group's largest entry: fp32 rounds the sums that carry the
+residual by up to 2e-4 of that entry; two launches bitwise equal), and
+one update at bucket 49152 launching it twice.  The engine's update
+program replayed as a CUDA graph equals the same program run eagerly,
+bitwise, and each replay counts
 its kernels' launches; so do its tracking program (from the same generator
 state, which the replay advances as far) and its keyframe merge; and
 ``DPVO.precompile`` leaves the engine's state and generator bitwise as it
@@ -53,7 +60,9 @@ import numpy as np
 import pytest
 import torch
 
-from dpvo_tpu_torch.ops import _cuda, agg_cuda, corr_cuda
+from dpvo_tpu_torch.ops import _cuda, agg_cuda, ba_cuda, corr_cuda
+from test_torch_ba_blocks import (CASES as BA_CASES, ba_case, excess, fp64,
+                                  plan_of)
 from test_torch_corr_box import patch_coords
 from test_torch_segments import CASES as SEGMENT_CASES, segment_case
 
@@ -290,6 +299,62 @@ def test_segment_sums_kernel_bitwise(dev, kind):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("name", list(BA_CASES))
+def test_ba_blocks_kernel_vs_plain(dev, name):
+    """The local-BA kernel against its plain version on the card
+    (tests/test_torch_ba_blocks.py's scenes: n_cap 4, 16 and 32, masked
+    rows with weight, self-edges, frames outside the window, patches past
+    k_cap, no free pose): each column group no further from the plain
+    version in fp64 than 4x the plain version in fp32 is
+    (``excess``), and two launches bitwise equal."""
+    case = ba_case(**BA_CASES[name], device=dev)
+    pl = plan_of(case)
+    args = (case["poses"], case["ctr"], case["intrinsics"], pl)
+    before = _cuda.launches["ba_blocks"]
+    got = ba_cuda.ba_blocks(*args)
+    again = ba_cuda.ba_blocks(*args)
+    plain = ba_cuda.ba_blocks_plain(*args)
+    ref = ba_cuda.ba_blocks_plain(*fp64(case), pl)
+    torch.cuda.synchronize()
+    assert _cuda.launches["ba_blocks"] == before + 2
+    D = 6 * pl.n_cap
+    assert got[0].shape == plain[0].shape == (pl.k_cap, D + 2)
+    assert got[1].shape == plain[1].shape == ((pl.n_cap + 1) ** 2,
+                                              ba_cuda.COLS)
+    assert excess(got, plain, ref, pl.n_cap) <= 1
+    if name == "no_free_pose":
+        assert not got[1].any() and not got[0][:, :D].any()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_update_step_launches_ba_blocks(dev):
+    """One ``update_step_dev`` at the retain cells' bucket, 49152 rows (the
+    small drive's live edges, the rest masked), launches the local-BA
+    kernel once a Gauss-Newton iteration, 2, and K4 not at all."""
+    from dpvo_tpu_torch.config import VOConfig
+    from dpvo_tpu_torch.engine import DPVO
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=7, OPTIMIZATION_WINDOW=5, KEYFRAME_INDEX=4,
+                   MIXED_PRECISION=True, EDGE_CAPACITY=49152,
+                   BA_WINDOW_CAP=8, KEYFRAME_THRESH=0.0)
+    base = np.random.default_rng(11).integers(0, 255, (96, 256, 3),
+                                              dtype=np.uint8)
+    slam = DPVO(cfg, ht=96, wd=128, device=dev, seed=2, cuda_graphs=False)
+    slam.motion_probe = lambda: 100.0
+    for t in range(10):
+        slam(t, np.ascontiguousarray(np.roll(base, -3 * t, 1)[:, :128]),
+             np.array([64.0, 64.0, 64.0, 48.0]))
+    torch.cuda.synchronize()
+    assert 0 < slam.hs.e_num < 49152
+    slam._stage_update(slam.hs.e_num, slam.n - 5, slam.n, None)
+    _cuda.reset_launches()
+    slam._update_program(49152, True, False, slam._update_k_cap())()
+    torch.cuda.synchronize()
+    assert _cuda.launches["ba_blocks"] == 2
+    assert _cuda.launches["segment_sums"] == 0
+
+
 def _wrapper_call(dev, name):
     """(launch counter key, call) for each kernel wrapper, with one float
     input that requires grad."""
@@ -301,6 +366,9 @@ def _wrapper_call(dev, name):
     g_pre.requires_grad_(True)
     val.requires_grad_(True)
     gmap = g_all.reshape(-1, 3, 3, 128).requires_grad_(True)
+    ba = ba_case(E=256, device=dev)
+    ba_plan = plan_of(ba)
+    ba["poses"].requires_grad_(True)
     calls = {
         "corr_enc": ("corr_enc", lambda: corr_cuda.corr_enc(
             g_all, kk, w_raw, f1, f2, coords, ff)),
@@ -318,13 +386,16 @@ def _wrapper_call(dev, name):
                                      gate, val, shift, gid, 16)),
         "segment_sums": ("segment_sums", lambda: agg_cuda.segment_sums(
             val, gid, 16)),
+        "ba_blocks": ("ba_blocks", lambda: ba_cuda.ba_blocks(
+            ba["poses"], ba["ctr"], ba["intrinsics"], ba_plan)),
     }
     return calls[name]
 
 
 @pytest.mark.parametrize("name", ["corr_enc", "corr_fused", "corr_single",
                                   "corr_grouped", "corr_probe",
-                                  "segment_softmax_sums", "segment_sums"])
+                                  "segment_softmax_sums", "segment_sums",
+                                  "ba_blocks"])
 def test_wrappers_refuse_autograd(dev, name):
     """The kernels have no backward: in grad mode with an input that
     requires grad each wrapper raises before launching; under no_grad it
@@ -338,7 +409,8 @@ def test_wrappers_refuse_autograd(dev, name):
         out = call()
     torch.cuda.synchronize()
     assert _cuda.launches[key] == before + 1
-    assert not out.requires_grad
+    outs = out if isinstance(out, tuple) else (out,)
+    assert not any(o.requires_grad for o in outs)
 
 
 @pytest.mark.parametrize("probe", corr_cuda.PROBES)
@@ -442,7 +514,7 @@ def test_update_graph_replay_vs_eager(dev):
         else:
             mag = slam._update_program(512, True, True, k_cap)()
         torch.cuda.synchronize()
-        for name in ("corr_enc", "segment_softmax_sums", "segment_sums"):
+        for name in ("corr_enc", "segment_softmax_sums", "ba_blocks"):
             assert _cuda.launches[name] > before.get(name, 0)
         outs.append([getattr(slam.ds, k).clone() for k in names]
                     + [mag.clone()])
@@ -807,14 +879,14 @@ def triplet_problem(K, seed=0):
 def test_structure_only_ba_card_vs_cpu(dev):
     """estimate_3d_keypoints' structure-only BA (``long_term.triangulate``:
     ba_iterative with t0 == t1, 6 iterations) at 1024 keypoints x 2 edges
-    on the card, with the K4 kernel, against the CPU: points within
-    1e-4, and near the true points."""
+    on the card, with the local-BA kernel (one launch an iteration),
+    against the CPU: points within 1e-4, and near the true points."""
     from dpvo_tpu_torch.loop_closure.long_term import triangulate
     poses, intr, pts_c, targets, X = triplet_problem(1024)
     _cuda.reset_launches()
     got = triangulate(torch.from_numpy(poses).to(dev),
                       torch.from_numpy(intr).to(dev), pts_c, targets)
-    assert _cuda.launches["segment_sums"] == 6
+    assert _cuda.launches["ba_blocks"] == 6
     want = triangulate(torch.from_numpy(poses), torch.from_numpy(intr),
                        pts_c, targets)
     np.testing.assert_allclose(got, want, atol=1e-4)

@@ -13,11 +13,12 @@ import torch
 from dpvo_tpu_torch.config import VOConfig
 from dpvo_tpu_torch.engine import DPVO
 from dpvo_tpu_torch.models.update import Update
-from dpvo_tpu_torch.ops import _cuda, agg_cuda, corr_cuda
+from dpvo_tpu_torch.ops import _cuda, agg_cuda, ba_cuda, corr_cuda
 
 torch.set_num_threads(1)
 WRAPPERS = ((agg_cuda, "segment_softmax_sums"), (agg_cuda, "segment_sums"),
-            (corr_cuda, "corr_enc"), (corr_cuda, "corr_fused"))
+            (ba_cuda, "ba_blocks"), (corr_cuda, "corr_enc"),
+            (corr_cuda, "corr_fused"))
 
 
 def test_refuse_autograd_helper():
@@ -79,7 +80,7 @@ def test_engine_runs_kernels_without_grad(recorded):
     assert np.isfinite(poses).all()
     assert probes, "motion_probe never ran"
     names = {n for n, _ in calls}
-    assert {"segment_softmax_sums", "segment_sums"} <= names
+    assert {"segment_softmax_sums", "ba_blocks"} <= names
     assert names & {"corr_enc", "corr_fused"}
     assert not any(g for _, g in calls), "a kernel wrapper ran in grad mode"
     assert updates and all(c and not g for g, c in updates), updates

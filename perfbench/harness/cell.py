@@ -10,7 +10,11 @@ called when the last returns).  Copies of the engine's state at a group of
 frames that begins at a share of the window drawn from the seed, and with
 ``trace`` a profiled stretch, fall inside the window; one more copy is
 taken when it closes.  The engine is then ended (``terminate()``) and
-freed, and the reference checks what it produced (``checks``).
+freed, and the configuration's check (``perfbench/check/<name>.py``)
+judges what it produced against the reference.  Under loop closure the
+copies carry the inactive edge store, the loop proposals are recorded by
+frame as the program made them, and the store's device rows are kept for
+the check.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import time
 import numpy as np
 import torch
 
-from . import checks, inputs, manifest, state, trace
+from ..reference.engine import Structure
+from . import inputs, manifest, state, trace
 
 INIT_FRAMES = 8
 
@@ -42,17 +47,32 @@ def buffer_size(traffic, seconds):
     return -(-(need + 2) // 1024) * 1024
 
 
+def inactive_capacity(cfg):
+    """Rows of the inactive edge store for ``cfg.BUFFER_SIZE`` keyframes
+    under loop closure: each keyframe retires its M x (2 x PATCH_LIFETIME -
+    1) edges, and a loop round every ``GLOBAL_OPT_FREQ`` keyframes at most
+    M edges for each of ``reduce_edges``' 1000 frame pairs."""
+    M = cfg.PATCHES_PER_FRAME
+    return cfg.BUFFER_SIZE * (M * (2 * cfg.PATCH_LIFETIME - 1)
+                              + -(-1000 * M // cfg.GLOBAL_OPT_FREQ))
+
+
 def engine_config(spec, seconds, overrides=None):
     """The engine's configuration: the configuration file's VOConfig keys,
     the traffic's pinned ones, ``BUFFER_SIZE`` from the window, then
-    ``overrides``."""
+    ``overrides``; under loop closure ``EDGE_CAPACITY_INAC`` from the
+    buffer (``inactive_capacity``) where none of them pins it."""
     from dpvo_tpu_torch.config import VOConfig
     keys = {f.name for f in dataclasses.fields(VOConfig)}
     cfg = {k: v for k, v in spec["config"].items() if k in keys}
     cfg.update({k: v for k, v in spec["traffic"].items() if k in keys})
     cfg["BUFFER_SIZE"] = buffer_size(spec["traffic"], seconds)
     cfg.update(overrides or {})
-    return VOConfig(**cfg)
+    out = VOConfig(**cfg)
+    if out.LOOP_CLOSURE and "EDGE_CAPACITY_INAC" not in cfg:
+        out = dataclasses.replace(out,
+                                  EDGE_CAPACITY_INAC=inactive_capacity(out))
+    return out
 
 
 def sync(device):
@@ -75,12 +95,12 @@ def newest_slot(slam):
     return int(np.nonzero(hs.tstamps[:hs.n] == hs.counter - 1)[0][0])
 
 
-def update_copied(slam, pairs):
+def update_copied(slam, pairs, take):
     """The engine's update between two copies of its state: before it, and
     after it with the targets and weights its BA read."""
-    pre = state.take(slam, net=False)
+    pre = take(slam, net=False)
     type(slam).update(slam)
-    pairs.append((pre, state.take(slam, net=False)))
+    pairs.append((pre, take(slam, net=False)))
 
 
 def host_load():
@@ -105,6 +125,14 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
         raise ValueError(f"loop {traf['loop']!r}: the harness runs the "
                          "offline loop only")
     cfg = engine_config(spec, seconds, ov.get("engine"))
+    # what the check or the reference's bookkeeping cannot follow fails here
+    manifest.admit(spec, cfg)
+    Structure(dataclasses.asdict(cfg))
+    lc = cfg.LOOP_CLOSURE
+    take = state.take_lc if lc else state.take
+    if lc:
+        log(f"[setup] inactive edge store: {cfg.EDGE_CAPACITY_INAC} rows, "
+            f"{cfg.EDGE_CAPACITY_INAC * 16} bytes")
     ht, wd = conf["image_height"], conf["image_width"]
     intr = np.asarray(conf["intrinsics"], np.float64)
     dtype = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
@@ -117,15 +145,14 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
     feed = inputs.FrameFeed(frames, device)
     slam = DPVO(cfg, network=inputs.split_weights(weights), ht=ht, wd=wd,
                 device=device, seed=seed)
-    start = {}
+    start, proposals = {}, {}
 
     def probe():
         # random weights give arbitrary motion: the probe is forced, and the
         # last frame before initialisation is copied here, after its
         # tracking, with the depths it drew
         if slam.n + 1 == INIT_FRAMES:
-            start["probe"] = state.take(slam, INIT_FRAMES,
-                                        range(INIT_FRAMES))
+            start["probe"] = take(slam, INIT_FRAMES, range(INIT_FRAMES))
         return 100.0
     slam.motion_probe = probe
     first_update = slam.update
@@ -134,8 +161,19 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
         # the state after the first update of the initialisation
         first_update()
         if "after" not in start:
-            start["after"] = state.take(slam)
+            start["after"] = take(slam)
     slam.update = update
+    if lc:
+        propose = slam.edges_loop
+
+        def edges_loop():
+            # the program's proposals, by the frame that asked (the last
+            # frame's key also gets terminate()'s)
+            kk, jj = propose()
+            proposals.setdefault(slam.hs.counter - 1, []).append(
+                (kk.copy(), jj.copy()))
+            return kk, jj
+        slam.edges_loop = edges_loop
 
     plan = [slam.precompile(max_edges=traf["precompile_max_edges"])]
     for t in range(traf["warm_frames"]):
@@ -153,6 +191,8 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
         with trace.profiler():       # the profiler's one-off start-up
             torch.zeros(1, device=device).add_(1)
     before = counters(slam)
+    if lc:
+        lc0 = lc_counters(slam, proposals)
     sync(device)
     # what set-up left behind is never collected again in the window
     gc.collect()
@@ -172,7 +212,7 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
         if c0 is not None and i <= c0 + group:
             # before frame i, with the features of frame i - 1 as the rings
             # hold them
-            copies.append(state.take(slam, features=(
+            copies.append(take(slam, features=(
                 () if i == c0 else [newest_slot(slam)])))
         if trace_on and i == tr["p0"]:
             sync(device)
@@ -181,7 +221,7 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
             tr["t0"] = time.perf_counter()
         in_group = c0 is not None and i < c0 + group
         if in_group:
-            slam.update = lambda: update_copied(slam, pairs)
+            slam.update = lambda: update_copied(slam, pairs, take)
         with trace.span("feed"):
             img = feed.get(t)
         h0 = time.perf_counter()
@@ -204,7 +244,7 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
     after = counters(slam)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
-    last = state.take(slam)
+    last = take(slam)
     if window_s < seconds:
         log(f"[window] WARNING: the buffer's {cfg.BUFFER_SIZE} keyframe "
             f"slots filled at window frame {frames_in}, {window_s:.3f} s: the "
@@ -224,7 +264,17 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
     if after["captures"] > before["captures"]:
         log("[window] WARNING: a graph was captured on the engine's thread "
             "inside the window (a stalled frame)")
+    store = None
+    if lc:
+        lc1 = lc_counters(slam, proposals)
+        log(f"[window] loop closure: loop rounds {lc1[0] - lc0[0]}, loop "
+            f"edges {lc1[1] - lc0[1]}, global BAs {lc1[2] - lc0[2]}, "
+            f"inactive rows {lc0[3]} -> {lc1[3]}")
+        # append-only: the check slices each copy's rows from it
+        store = (slam.ds.target_inac, slam.ds.weight_inac)
+    t_end = time.perf_counter()
     poses, _ = slam.terminate()
+    log(f"[close] terminate() {time.perf_counter() - t_end:.3f} s")
     win = poses[traf["warm_frames"]:traf["warm_frames"] + frames_in]
     failed = int((~np.isfinite(win).all(axis=1)).sum())
     red = trace.reduce(prof) if prof is not None else None
@@ -232,30 +282,20 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # --- the check -------------------------------------------------------
+    # --- the check: the configuration's own -------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ck = checks.Checker(dict(
+    c0 = frames_in if c0 is None else c0
+    run_data = dict(
         cfg=dataclasses.asdict(cfg), weights=weights, frames=frames,
         device=device, M=cfg.PATCHES_PER_FRAME,
         intr=torch.as_tensor(intr / 4, dtype=torch.float32, device=device),
-        fmap_hw=(ht // 4, wd // 4)))
+        fmap_hw=(ht // 4, wd // 4), start=start, copies=copies,
+        c0=traf["warm_frames"] + c0, end=traf["warm_frames"] + frames_in,
+        last=last, pairs=pairs, control=control, proposals=proposals,
+        store=store)
     t_ref = time.perf_counter()
-    s0 = ck.start(start["probe"], start["after"], control)
-    c0 = frames_in if c0 is None else c0
-    s1 = ck.steps(copies, traf["warm_frames"] + c0,
-                  traf["warm_frames"] + frames_in, last, control)
-    for g in [s0[1]] + [g for g in s1[1] if g is not None]:
-        log("[check-detail] " + " ".join(
-            f"{w}:" + ",".join(f"{k}={v:.3g}" for k, v in (g[w] or {}).items())
-            for w in g))
-    ba_prog = ck.ba_alone(pairs)
-    ba_ctl = ck.ba_alone(pairs, tf32=True) if control else None
-    for g in ba_prog:
-        log("[check-detail] ba alone: " + ", ".join(
-            f"{k}={v:.3g}" for k, v in g.items()))
-    nums = checks.numbers(s0, s1, ba_prog)
-    ctl = checks.numbers(s0, s1, ba_ctl, "fp8") if control else None
+    nums, ctl, work, updates = spec["check"].compare(run_data)
     log(f"[check] reference {time.perf_counter() - t_ref:.2f} s, group at "
         f"window frame {c0} (share {share:.3f}); " + ", ".join(f"{k} {v:.4g}"
                                            for k, v in nums.items()))
@@ -264,7 +304,7 @@ def run(workload, seed, seconds, trace_on, device, t_start, control=False,
     ctx = dict(loop=traf["loop"], setup_s=setup_s, frames=frames_in,
                window_s=window_s, spans=spans, trace=red,
                stretch=tr, work=manifest.work(conf),
-               updates=s1[3].update_edges, steps=s1[2],
+               updates=updates, steps=work,
                first=traf["warm_frames"], ht=ht, wd=wd,
                in_stretch=lambda k: (tr["p0"] <= k < tr["p0"] + tr["n"]
                                      and "t1" in tr))
@@ -292,6 +332,15 @@ def card_info(fields="clocks.sm,power.draw,temperature.gpu"):
         return out.stdout.strip() or out.stderr.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi: {e}"
+
+
+def lc_counters(slam, proposals):
+    """Under loop closure: (loop rounds with edges, their edges, global BAs
+    run, inactive rows) so far."""
+    rounds = [len(calls[0][0]) for calls in proposals.values()
+              if len(calls[0][0])]
+    return (len(rounds), sum(rounds),
+            int(np.count_nonzero(slam.ran_global_ba)), slam.hs.n_inac)
 
 
 def _diff(a, b):

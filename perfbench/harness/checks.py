@@ -36,10 +36,14 @@ depths' changes over the step, the two gaps summed and divided alike: how
 far rounding carries through the update operator and BA varies with the
 state by more than the control's margin, the features' gap does not, and
 one part's ratio of two small gaps swings more than both parts'.
-``step_ba`` is the worst, over the group, of the poses' and the depths'
-changes' gaps (BA is float32 on both sides).  The control puts the
-reference in the program's place, computed in fp8 (``prec="fp8"``), and
-for ``step_ba`` in float32 with TF32 matmuls.
+``step_ba`` takes the poses' and the depths' changes against the
+reference's BA in float64, each gap over the same gap of the reference's
+own BA in float32, and the worst of these over the group: BA's change is
+known to float32 only as far as the state's conditioning carries the
+rounding of the absolute poses it reads, 1e-5 to 0.1 and more of the change
+by state, which the float32 reference's gap reads too.  The control puts
+the reference in the program's place, computed in fp8 (``prec="fp8"``),
+and for ``step_ba`` its BA in bfloat16.
 """
 from __future__ import annotations
 
@@ -53,11 +57,20 @@ from ..reference.ba import NEAR_RESET
 from ..reference.engine import INIT_FRAMES, Numeric, Structure
 from . import state
 
+# the smallest float32 gap ``step_ba`` divides by: a sum over thousands of
+# edges in float32 is known to about this share, however well conditioned
+F32_FLOOR = 1e-6
+
 
 def rel(a, b):
     a, b = a.float(), b.float()
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(
         min=1e-30))
+
+
+def _rel64(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(
+        min=1e-300))
 
 
 def compare(prog, ref, base_pose, base_depth):
@@ -227,53 +240,54 @@ class Checker:
         bad += int(not _same(st, last))
         return bad, gaps, work, st
 
-    def ba_alone(self, pairs, tf32=False):
-        """Local BA alone, the reference's from the program's inputs to each
-        update's BA: ``pairs`` of the program's states before an update and
-        after it (with the targets and weights BA read).  -> [{"pose",
-        "depth"}] gaps of the program's changes, and beside them (``self_*``,
-        not compared) the reference's own against itself with its edges in
-        reverse order: how far the state's conditioning carries float32
-        rounding; ``tf32``: the reference with TF32 matmuls in the
-        program's place (the control)."""
+    def ba_alone(self, pairs, control=False):
+        """Local BA alone, from the program's inputs to each update's BA:
+        ``pairs`` of the program's states before an update and after it
+        (with the targets and weights BA read).  -> [{"pose", "depth",
+        "f32_pose", "f32_depth"}]: the gaps of the program's pose and depth
+        changes against the reference's in float64, and those of the
+        reference's own float32 BA (the root mean square over the edges in
+        three orders): how far float32 rounding carries in this state; with
+        ``control``, ``ctl_pose`` and ``ctl_depth``: the gaps of the
+        reference computed in bfloat16 in the program's place."""
         out = []
-        for pre, post in pairs:
-            poses, depth, loose = self._ba(pre, post)
-            P0, d0 = pre["poses"].float(), pre["patches"][:, 2].float()
+        for i, (pre, post) in enumerate(pairs):
+            poses, depth, loose = self._ba(pre, post, torch.float64)
+            P0 = pre["poses"].double()
+            d0 = pre["patches"][:, 2].double()
             keep = (d0 < NEAR_RESET) & ~loose
             inv = lie.inv(P0)
+            xi, dd = lie.log(lie.mul(poses, inv)), depth[keep] - d0[keep]
 
             def gaps(P, d):
-                return (rel(lie.log(lie.mul(P, inv)),
-                            lie.log(lie.mul(poses, inv))),
-                        rel(d[keep] - d0[keep], depth[keep] - d0[keep]))
-            if tf32:
-                g = gaps(*self._ba(pre, post, tf32=True)[:2])
-                out.append(dict(pose=g[0], depth=g[1]))
-                continue
-            g = gaps(post["poses"].float(), post["patches"][:, 2].float())
-            r = gaps(*self._ba(pre, post, reverse=True)[:2])
-            out.append(dict(pose=g[0], depth=g[1], self_pose=r[0],
-                            self_depth=r[1]))
+                return (_rel64(lie.log(lie.mul(P.double(), inv)), xi),
+                        _rel64(d.double()[keep] - d0[keep], dd))
+            g = dict(zip(("pose", "depth"), gaps(
+                post["poses"], post["patches"][:, 2])))
+            E = len(post["ii"])
+            gen = torch.Generator().manual_seed(i)
+            perm = torch.randperm(E, generator=gen)
+            f32 = [gaps(*self._ba(pre, post, torch.float32, o)[:2])
+                   for o in (None, torch.arange(E - 1, -1, -1), perm)]
+            g["f32_pose"], g["f32_depth"] = (
+                (sum(x[k] ** 2 for x in f32) / 3) ** 0.5 for k in (0, 1))
+            if control:
+                g["ctl_pose"], g["ctl_depth"] = gaps(
+                    *self._ba(pre, post, torch.bfloat16)[:2])
+            out.append(g)
         return out
 
-    def _ba(self, pre, post, tf32=False, reverse=False):
+    def _ba(self, pre, post, dtype, order=None):
         n = pre["n"]
         t0 = max(n - self.ctx["cfg"]["OPTIMIZATION_WINDOW"], 1)
         dev = pre["poses"].device
-        o = torch.arange(len(post["ii"]), device=dev)
-        o = o.flip(0) if reverse else o
-        old = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        try:
-            return ba.local_ba(
-                pre["poses"].float(), pre["patches"][:, :2].float(),
-                pre["patches"][:, 2].float(), self.ctx["intr"],
-                post["target"].float()[o], post["weight"].float()[o],
-                *(torch.as_tensor(post[k], device=dev)[o]
-                  for k in ("ii", "jj", "kk")), t0, n)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = old
+        o = slice(None) if order is None else order.to(dev)
+        return ba.local_ba(
+            pre["poses"].float(), pre["patches"][:, :2].float(),
+            pre["patches"][:, 2].float(), self.ctx["intr"],
+            post["target"].float()[o], post["weight"].float()[o],
+            *(torch.as_tensor(post[k], device=dev)[o]
+              for k in ("ii", "jj", "kk")), t0, n, dtype=dtype)
 
     def work(self, num):
         """What the step's update read, for the kernels' least times."""
@@ -288,11 +302,47 @@ class Checker:
 
 
 def _same(st, s):
-    """The reference's bookkeeping ``st`` against the program's copy ``s``."""
-    return (st.n == s["n"] and list(st.tstamps) == s["tstamps"].tolist()
+    """The reference's bookkeeping ``st`` against the program's copy ``s``;
+    under loop closure also the inactive store's edges, in order, and the
+    loop rounds' and global BA's bookkeeping (``state.take_lc``)."""
+    same = (st.n == s["n"] and list(st.tstamps) == s["tstamps"].tolist()
             and np.array_equal(np.sort(state.edge_keys(st.ii, st.jj, st.kk)),
                                np.sort(state.edge_keys(s["ii"], s["jj"],
                                                        s["kk"]))))
+    inac = s.get("inac")
+    if inac is None:
+        return same
+    ii, jj, kk = st.inactive()
+    return (same and inac["n"] == st.n_inac
+            and np.array_equal(inac["ii"], ii)
+            and np.array_equal(inac["jj"], jj)
+            and np.array_equal(inac["kk"], kk)
+            and inac["last_global_ba"] == st.last_global_ba
+            and inac["ran"] == (st.n in st.ran_global))
+
+
+def bookkeeping(run):
+    """The reference's bookkeeping alone, from frame 0 with the program's
+    loop proposals (``run["proposals"]``), against the program's copies in
+    ``run`` (``compare``'s argument): the start's state after its first
+    update, each of the group's copies and the copy at the window's close.
+    -> (the copies that differ, the ``Structure`` at the close)."""
+    cfg, props = run["cfg"], run.get("proposals")
+    st = Structure(cfg, props)
+    for _ in range(INIT_FRAMES):
+        st.frame(init_updates=1)
+    bad = int(not _same(st, run["start"]["after"]))
+    st = Structure(cfg, props)
+    while st.counter < run["c0"]:
+        st.frame()
+    copies = run["copies"]
+    for pre in copies[:-1]:
+        bad += int(not _same(st, pre))
+        st.frame()
+    bad += int(not copies or not _same(st, copies[-1]))
+    while st.counter < run["end"]:
+        st.frame()
+    return bad + int(not _same(st, run["last"])), st
 
 
 def _ratio(results, who, parts):
@@ -308,7 +358,7 @@ def _ratio(results, who, parts):
 def numbers(start, steps, ba_gaps, who="prog"):
     """The compared numbers from ``Checker.start``'s, ``Checker.steps``' and
     ``Checker.ba_alone``'s results; a gap that could not be taken reads
-    inf.  ``who="fp8"`` with the TF32 BA's gaps: the control's."""
+    inf.  ``who="fp8"``: the control's (its BA in bfloat16)."""
     out = dict(structure=start[0] + steps[0])
     for stage, results in (("start", [start[1]]), ("step", steps[1])):
         whole = results and all(r is not None and r[who] is not None
@@ -318,6 +368,8 @@ def numbers(start, steps, ba_gaps, who="prog"):
         out[f"{stage}_update"] = _ratio(results, who, ("update",))
         if stage == "start":
             out["start_ba"] = _ratio(results, who, ("pose", "depth"))
-    out["step_ba"] = max((max(g["pose"], g["depth"]) for g in ba_gaps),
+    p = "" if who == "prog" else "ctl_"
+    out["step_ba"] = max((max(g[p + k] / max(g["f32_" + k], F32_FLOOR)
+                              for k in ("pose", "depth")) for g in ba_gaps),
                          default=float("inf"))
     return out

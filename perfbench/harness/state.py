@@ -6,7 +6,8 @@ a step reads and writes (the keyframes' timestamps, poses and patch
 centres; the live edges with their hidden state, targets and weights; the
 feature rings' rows of the frames asked for), and ``view`` puts a copy, or
 the reference's state, into one form for the comparison.  The copies are
-made on the engine's stream, with no wait.
+made on the engine's stream, with no wait.  Under loop closure ``take_lc``
+adds the inactive edge store, at no cost: it only appends.
 """
 from __future__ import annotations
 
@@ -51,6 +52,22 @@ def take(slam, slots=None, features=(), net=True):
         target=ds.target[:e].clone(), weight=ds.weight[:e].clone(),
         features={int(hs.tstamps[s]): ring_features(slam, s)
                   for s in features})
+
+
+def take_lc(slam, *a, **kw):
+    """``take`` under loop closure, with ``inac``: the inactive edge store's
+    row count ``n``, its host index arrays ``ii``, ``jj``, ``kk`` (the
+    engine replaces them when it stores, never writes into them, so a
+    reference is a copy), ``last_global_ba`` (the keyframe count of the last
+    loop round with edges) and ``ran`` (whether global BA ran at this
+    keyframe count).  The store's device rows [0, n) are written once, so
+    the check slices them from the store as the run left it."""
+    s = take(slam, *a, **kw)
+    hs = slam.hs
+    s["inac"] = dict(n=hs.n_inac, ii=hs.ii_inac, jj=hs.jj_inac,
+                     kk=hs.kk_inac, last_global_ba=slam.last_global_ba,
+                     ran=bool(slam.ran_global_ba[s["n"]]))
+    return s
 
 
 def edge_keys(ii, jj, kk):

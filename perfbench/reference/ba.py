@@ -1,6 +1,7 @@
-"""Local bundle adjustment in plain PyTorch, float32: Gauss-Newton over the
-free keyframe poses (6 dof each) and the inverse depths of the patches the
-edges touch, with the depths eliminated by a Schur complement.
+"""Local bundle adjustment in plain PyTorch, float32 unless asked for
+another precision: Gauss-Newton over the free keyframe poses (6 dof each)
+and the inverse depths of the patches the edges touch, with the depths
+eliminated by a Schur complement.
 
 DPVO's local BA: residuals at each patch's centre pixel, the robust mask
 (residual under 128 px, depth in front past 0.2, the projection within 64
@@ -33,7 +34,7 @@ def _terms(poses, ctr, depth, intr, target, ii, jj, kk):
     x1, y1 = fx * X / Zs + cx, fy * Y / Zs + cy
     r = target - torch.stack([x1, y1], dim=-1)
     mask = ((r.norm(dim=-1) < 128) & (Z > 0.2) & (x1 > -64) & (y1 > -64)
-            & (x1 < 2 * cx + 64) & (y1 < 2 * cy + 64)).float()
+            & (x1 < 2 * cx + 64) & (y1 < 2 * cy + 64)).to(r.dtype)
     o = torch.zeros_like(d)
     Jj = torch.stack([
         torch.stack([fx * W * d, o, -fx * X * W * d2, -fx * X * Y * d2,
@@ -47,7 +48,7 @@ def _terms(poses, ctr, depth, intr, target, ii, jj, kk):
 
 
 def local_ba(poses, ctr, depth, intr, target, weight, ii, jj, kk, t0, t1,
-             iterations=2, lmbda=1e-4):
+             iterations=2, lmbda=1e-4, dtype=torch.float32):
     """poses (n, 7), ctr (K, 2) patch centres, depth (K,), intr (4,),
     target/weight (E, 2); poses t0 <= i < t1 are free.  -> (poses, depth,
     loose), new tensors; ``loose`` (K,) marks the patches whose step
@@ -56,8 +57,13 @@ def local_ba(poses, ctr, depth, intr, target, weight, ii, jj, kk, t0, t1,
     equations, under a thousandth of the median touched patch's), whose
     step the damping alone bounds, and those whose depth before the reset
     reached NEAR_RESET at any iteration, which rounding can carry either
-    side of it."""
+    side of it.  ``dtype``: every tensor and operation in it (the poses'
+    products, the edges' terms, their sums), but the Cholesky solve, which
+    is in float32 at least."""
+    poses, ctr, depth, intr, target, weight = (
+        x.to(dtype) for x in (poses, ctr, depth, intr, target, weight))
     poses, depth = poses.clone(), depth.clone()
+    solve = torch.promote_types(dtype, torch.float32)
     nf = t1 - t0
     D = 6 * nf
     uk, slot = torch.unique(kk, return_inverse=True)
@@ -69,7 +75,8 @@ def local_ba(poses, ctr, depth, intr, target, weight, ii, jj, kk, t0, t1,
                                      ii, jj, kk)
         w = weight * mask[:, None]                            # (E, 2)
         li, lj = ii - t0, jj - t0
-        J = torch.zeros((ii.shape[0], 2, nf + 1, 6), device=dev)
+        J = torch.zeros((ii.shape[0], 2, nf + 1, 6), dtype=dtype,
+                        device=dev)
         fi = torch.where((li >= 0) & (li < nf), li, nf)
         fj = torch.where((lj >= 0) & (lj < nf), lj, nf)
         ar = torch.arange(ii.shape[0], device=dev)
@@ -79,11 +86,11 @@ def local_ba(poses, ctr, depth, intr, target, weight, ii, jj, kk, t0, t1,
         wJ = w[..., None] * J
         B = wJ.reshape(-1, D).t() @ J.reshape(-1, D)
         v = torch.einsum("era,er->a", wJ, r)
-        Em = torch.zeros((Ku, D), device=dev).index_add_(
+        Em = torch.zeros((Ku, D), dtype=dtype, device=dev).index_add_(
             0, slot, torch.einsum("er,era->ea", w * Jz, J)).t()
-        C = torch.zeros(Ku, device=dev).index_add_(0, slot,
+        C = torch.zeros(Ku, dtype=dtype, device=dev).index_add_(0, slot,
                                                    (w * Jz * Jz).sum(1))
-        u = torch.zeros(Ku, device=dev).index_add_(0, slot,
+        u = torch.zeros(Ku, dtype=dtype, device=dev).index_add_(0, slot,
                                                    (w * r * Jz).sum(1))
         if it == 0:
             loose[uk] = C < 1e-3 * C.median()
@@ -92,8 +99,8 @@ def local_ba(poses, ctr, depth, intr, target, weight, ii, jj, kk, t0, t1,
         S = B - EQ @ Em.t()
         S = S + torch.diag(1e-4 * torch.diagonal(S) + 1.0)
         y = v - EQ @ u
-        L, info = torch.linalg.cholesky_ex(S)
-        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
+        L, info = torch.linalg.cholesky_ex(S.to(solve))
+        dX = torch.cholesky_solve(y.to(solve)[:, None], L)[:, 0].to(dtype)
         dZ = Q * (u - Em.t() @ dX)
         if int(info) != 0 or not bool(torch.isfinite(dX).all()):
             dX, dZ = torch.zeros_like(dX), torch.zeros_like(dZ)

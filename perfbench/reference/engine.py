@@ -13,6 +13,16 @@ threshold no finite motion reaches: always merge), since random weights
 cannot decide one; which frame it concerns and when it applies is the
 schedule's.
 
+Under proximity loop closure (``LOOP_CLOSURE``, DPV-SLAM), in the regime
+that never merges, it follows loop closure's bookkeeping as DPV-SLAM's
+code does it: a loop round at each frame where ``GLOBAL_OPT_FREQ``
+keyframes have passed since the last round with edges, its edges appended
+before the frame's own; loop edges into the optimization window kept at
+retirement; every retired edge appended to an inactive store, in the order
+the program stores them; and, for each update, whether global BA runs.
+The proposals of a round are taken as the program made them (``proposals``,
+by frame), as its random centroids are: they follow from its poses.
+
 ``Numeric`` is the state one step needs, taken from the program before the
 frame (poses, patch centroids and depths, the edges' hidden state), and
 moved by the same bookkeeping: tracking (both encoders, the patches, the
@@ -33,7 +43,7 @@ INIT_UPDATES = 12     # updates at initialisation
 class Structure:
     """The host bookkeeping of a run, from frame 0."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, proposals=None):
         self.M = cfg["PATCHES_PER_FRAME"]
         self.life = cfg["PATCH_LIFETIME"]
         self.rw = cfg["REMOVAL_WINDOW"]
@@ -43,9 +53,8 @@ class Structure:
         self.batch = max(1, min(cfg["ASYNC_KEYFRAME_BATCH"], self.lag))
         self.shift_cap = self.ki + self.lag + 1
         self.buffer = cfg["BUFFER_SIZE"]
-        if not cfg.get("ASYNC_KEYFRAME", True) or cfg.get("LOOP_CLOSURE"):
-            raise ValueError("the reference follows lagged keyframing "
-                             "without loop closure only")
+        if not cfg.get("ASYNC_KEYFRAME", True):
+            raise ValueError("the reference follows lagged keyframing only")
         thresh = cfg["KEYFRAME_THRESH"]
         if thresh <= 0:
             self.merges = False
@@ -54,6 +63,23 @@ class Structure:
         else:
             raise ValueError(f"KEYFRAME_THRESH {thresh} leaves the decision "
                              "to the motion; the traffic must pin it")
+        self.lc = bool(cfg.get("LOOP_CLOSURE"))
+        if self.lc and self.merges:
+            raise ValueError("the reference follows loop closure in the "
+                             "regime that never merges (KEYFRAME_THRESH 0) "
+                             "only, not with merges (KEYFRAME_THRESH >= 1e6)")
+        self.freq = cfg.get("GLOBAL_OPT_FREQ")
+        # the program's loop proposals: frame -> [(kk, jj)], one a call
+        self.proposals = proposals or {}
+        self.last_global_ba = -1000
+        self.ran_global: set[int] = set()   # keyframe counts global BA ran at
+        self.inac: list = []                # retired edges: (ii, jj, kk) chunks
+        self.n_inac = 0
+        self._inac = None                   # the chunks joined
+        # loop edges appended, and for each update whether global BA ran,
+        # by the frame that did it
+        self.loop_edges: dict[int, int] = {}
+        self.global_ba: dict[int, list[bool]] = {}
         self.n = 0
         self.counter = 0
         self.tstamps: list[int] = []
@@ -83,6 +109,8 @@ class Structure:
             num.track(self, slot)
         self.counter += 1
         self.n += 1
+        if self.lc and self.n - self.last_global_ba >= self.freq:
+            self.loop(num)
         n, M, r = self.n, self.M, self.life
         kf = np.arange(M * max(n - r, 0), M * max(n - 1, 0))
         jf = np.full_like(kf, n - 1)
@@ -105,10 +133,38 @@ class Structure:
             self.update(num)
             self.keyframe(num)
 
+    def loop(self, num):
+        """A loop round: the program's proposal at this frame (its first
+        call here; none recorded reads as empty), appended when not
+        empty."""
+        calls = self.proposals.get(self.counter - 1)
+        if not calls or len(calls[0][0]) == 0:
+            return
+        kk, jj = (np.asarray(a, np.int64) for a in calls[0])
+        self.last_global_ba = self.n
+        self.loop_edges[self.counter - 1] = len(kk)
+        self.kk = np.concatenate([self.kk, kk])
+        self.jj = np.concatenate([self.jj, jj])
+        self.ii = np.concatenate([self.ii, kk // self.M])
+        if num is not None:
+            num.append(len(kk))
+
     def update(self, num):
         n = self.n
         self.update_edges.setdefault(self.counter - 1, []).append(
             len(self.kk))
+        if self.lc:
+            # global BA in place of local BA, once a keyframe count, while
+            # an active edge leaves from behind the removal window
+            run_global = (n not in self.ran_global
+                          and bool((self.ii < n - self.rw - 1).any()))
+            self.global_ba.setdefault(self.counter - 1, []).append(run_global)
+            if run_global:
+                self.ran_global.add(n)
+                if num is not None:
+                    raise NotImplementedError(
+                        "the reference's step has no global BA: the "
+                        "configuration's check follows it")
         if num is not None:
             num.update(self, max(n - self.ow, 1), n)
         i, j = n - self.ki - 1, n - self.ki + 1
@@ -128,7 +184,12 @@ class Structure:
                               + self.batch - 1 >= self.lag):
             for tcand in self.queue.pop(0)[0]:
                 self.apply(tcand, num)
-        self.remove(self.kk // self.M < self.n - self.rw, num)
+        retire = self.kk // self.M < self.n - self.rw
+        if self.lc:
+            # loop edges into the optimization window stay
+            retire &= ~(((self.jj - self.ii) > 30)
+                        & (self.jj > self.n - self.ow))
+        self.remove(retire, num, store=True)
 
     def apply(self, tcand, num):
         if not self.merges or tcand not in self.tstamps[:self.n]:
@@ -148,11 +209,23 @@ class Structure:
         del self.tstamps[k]
         self.n -= 1
 
-    def remove(self, mask, num):
+    def remove(self, mask, num, store=False):
+        if store and self.lc and mask.any():
+            self.inac.append((self.ii[mask], self.jj[mask], self.kk[mask]))
+            self.n_inac += int(mask.sum())
+            self._inac = None
         keep = ~mask
         self.ii, self.jj, self.kk = self.ii[keep], self.jj[keep], self.kk[keep]
         if num is not None:
             num.keep(torch.as_tensor(keep, device=num.device))
+
+    def inactive(self):
+        """The inactive store's (ii, jj, kk), in the order stored."""
+        if self._inac is None:
+            self._inac = tuple(
+                np.concatenate([c[i] for c in self.inac]) if self.inac
+                else np.zeros(0, np.int64) for i in range(3))
+        return self._inac
 
 
 class Numeric:

@@ -9,7 +9,7 @@ result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
 with ``--trace 1`` ``breakdown``, and last ``checks``, each compared number
 with its limit.  ``--control 1`` also prints the numbers of the check's
-control (the reference in fp8, its BA with TF32, in the program's place);
+control (the reference in fp8, its BA in bfloat16, in the program's place);
 the benchmark's own runs never ask for it.  The run fails, printing no
 result, without a card, with JAX or the JAX package loaded, or where the
 program is missing.
